@@ -10,9 +10,13 @@
 // Integer arithmetic wraps modulo 2^32, like the TPU kernel's int32
 // accumulator.
 //
-// What bounds it on the H100: it moves M*K + K*N + 4*M*N bytes (3.35 TB/s)
-// and does 2*M*N*K*n_planes integer operations.  The main path's layers are
-// well above the ridge (K is 27..4032), so the operations bound it.  This
+// What bounds it on the H100: it moves M*K + K*N + 4*M*N bytes (3.35 TB/s).
+// The function itself is one 8-bit GEMM of 2*M*N*K integer operations
+// (1,979 TOP/s int8): the plane weights and any mask fold into the decoded
+// weight matrix sum_b pw[b] * plane_b before a single product, so the
+// n_planes plane products this kernel runs are its own cost, not the
+// function's.  Against that bound the main path's shapes sit below the
+// ridge (about 590 operations per byte), so bytes bound them.  This
 // first design is simple: one thread block owns one 64x64 output tile and
 // walks K in 32-wide steps; the x tile and the packed weight bytes are
 // staged in shared memory, edges are masked on load and store (nothing is

@@ -14,7 +14,8 @@ zero entry drops that plane's contribution on that block.
 :func:`bitserial_matmul` launches the CUDA kernel in
 ``src/repro_torch/csrc/bitserial_gemm.cu`` for CUDA tensors and runs
 :func:`bitserial_matmul_plain` for CPU tensors.  It never falls back on a
-CUDA tensor: a kernel that does not build, or a launch that fails, raises.
+CUDA tensor: a kernel that does not build, or a launch that fails, raises
+:class:`KernelError`, which the serving engine's recovery ladder re-raises.
 The kernel is compiled with ``nvcc`` on first use into ``build/kernels/``
 at the repository root and loaded through ``ctypes``.
 """
@@ -31,8 +32,8 @@ import threading
 
 import torch
 
-__all__ = ["bitserial_matmul", "bitserial_matmul_plain", "build",
-           "build_log", "plane_block_mask"]
+__all__ = ["KernelError", "bitserial_matmul", "bitserial_matmul_plain",
+           "build", "build_log", "plane_block_mask"]
 
 DEFAULT_BK = 256  # the reference kernel's block sizes: the mask granularity
 DEFAULT_BN = 128
@@ -43,6 +44,10 @@ _LIB: ctypes.CDLL | None = None
 _LIB_LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """The kernel did not build or its launch failed."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -50,8 +55,8 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the bitserial_gemm kernel cannot be "
-                       "built (install the CUDA toolkit or put nvcc on PATH)")
+    raise KernelError("nvcc not found: the bitserial_gemm kernel cannot be "
+                      "built (install the CUDA toolkit or put nvcc on PATH)")
 
 
 def build() -> ctypes.CDLL:
@@ -73,12 +78,15 @@ def build() -> ctypes.CDLL:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{proc.stderr}")
+                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
+                                  f"{proc.stderr}")
             os.replace(tmp, lib_path)
             # keep the compiler's report (registers, shared memory, spills)
             lib_path.with_suffix(".log").write_text(proc.stderr)
-        lib = ctypes.CDLL(str(lib_path))
+        try:
+            lib = ctypes.CDLL(str(lib_path))
+        except OSError as e:
+            raise KernelError(f"cannot load {lib_path}: {e}") from e
         fn = lib.bitserial_gemm
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -239,7 +247,7 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
             float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
             M, N, K, n_bits, int(signed), stream)
     if err != 0:
-        raise RuntimeError(f"bitserial_gemm launch failed: cudaError_t {err}")
+        raise KernelError(f"bitserial_gemm launch failed: cudaError_t {err}")
     bitserial_matmul.launches += 1
     return out
 

@@ -1,33 +1,15 @@
 """Entry points the engine calls into the kernels.
 
 :func:`bitserial_matmul_exact` is the exact unsigned bit-serial GEMM the
-``gemm`` backend (core/backends.py) runs.  :func:`plain_kernels` swaps the
-kernel for its plain torch version inside a ``with`` block; it exists only
-so a whole forward can be compared kernel-against-plain on the card (see
-``chip_smoke.py``) and is never entered on the main path.
+``gemm`` backend (core/backends.py) runs.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
 from repro_torch.kernels import bitserial_matmul as _bsm
 
-__all__ = ["bitserial_matmul_exact", "plain_kernels"]
-
-_USE_PLAIN = [False]
-
-
-@contextlib.contextmanager
-def plain_kernels():
-    """Run :func:`bitserial_matmul_exact` through the plain version."""
-    prev = _USE_PLAIN[0]
-    _USE_PLAIN[0] = True
-    try:
-        yield
-    finally:
-        _USE_PLAIN[0] = prev
+__all__ = ["bitserial_matmul_exact"]
 
 
 def bitserial_matmul_exact(x_q: torch.Tensor, planes: torch.Tensor, *,
@@ -35,6 +17,5 @@ def bitserial_matmul_exact(x_q: torch.Tensor, planes: torch.Tensor, *,
     """Exact unsigned-integer bit-serial GEMM ``[M, K] x [K, N] -> [M, N]``
     int32: unsigned plane weights (the MSB carries +2^(n-1), the packed word
     engine's operand convention) and the accumulator returned verbatim."""
-    fn = _bsm.bitserial_matmul_plain if _USE_PLAIN[0] else _bsm.bitserial_matmul
-    return fn(x_q, planes, 1.0, None, n_bits=n_bits, out_dtype=torch.int32,
-              signed=False)
+    return _bsm.bitserial_matmul(x_q, planes, 1.0, None, n_bits=n_bits,
+                                 out_dtype=torch.int32, signed=False)

@@ -29,6 +29,7 @@ from repro_torch.core import schedule as nc_schedule
 from repro_torch.core import slo as nc_slo
 from repro_torch.core.cache_geometry import XEON_E5_35MB
 from repro_torch.device import resolve_device
+from repro_torch.kernels.bitserial_matmul import KernelError
 from repro_torch.launch.engine_api import Engine as _EngineAPI
 from repro_torch.models import inception
 
@@ -83,7 +84,9 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
     weights' detected zero filters, ``overlap`` plans §IV-E double
     buffering, ``warmup_replan`` re-plans from the first batch's measured
     occupancy, ``slo_ms`` arms the SLO-aware admission policy, and a batch
-    whose forward raises walks the recovery ladder (``_recover``).
+    whose forward raises walks the recovery ladder (``_recover``); a
+    :class:`~repro_torch.kernels.bitserial_matmul.KernelError` (a kernel that
+    did not build or launch) is re-raised instead, never served degraded.
     ``integrity`` and ``compressed`` are not part of this package yet and
     raise.  The clock is injectable (``now_fn``, or ``now=`` on
     ``submit``/``step``).  Each request's ``logits`` is a tensor on the
@@ -217,6 +220,8 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
         try:
             logits, report = self._forward(x, self._schedule_for(len(batch)))
             degraded = None
+        except KernelError:
+            raise
         except Exception as e:  # noqa: BLE001 — recovery ladder below
             logits, report, degraded = self._recover(batch, x, now, e)
             if logits is None:
@@ -281,11 +286,15 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
             try:
                 logits, report = self._forward(x, self._schedule_for(n))
                 return logits, report, None
+            except KernelError:
+                raise
             except Exception as e:  # noqa: BLE001
                 last = e
         try:
             logits, report = self._forward(x, self._fallback_schedule_for(n))
             return logits, report, "fallback-schedule"
+        except KernelError:
+            raise
         except Exception as e:  # noqa: BLE001
             last = e
         try:

@@ -85,10 +85,9 @@ def test_exact_entry_equals_reference_ops(case):
     got = tops.bitserial_matmul_exact(torch.from_numpy(x),
                                       torch.from_numpy(planes), n_bits=n_bits)
     assert got.dtype == torch.int32 and (got.numpy() == want).all()
-    with tops.plain_kernels():
-        again = tops.bitserial_matmul_exact(torch.from_numpy(x),
-                                            torch.from_numpy(planes),
-                                            n_bits=n_bits)
+    again = tk.bitserial_matmul_plain(torch.from_numpy(x),
+                                      torch.from_numpy(planes), n_bits=n_bits,
+                                      out_dtype=torch.int32, signed=False)
     assert torch.equal(got, again)
 
 
@@ -114,6 +113,19 @@ def test_wrapper_rejects_bad_operands():
     with pytest.raises(ValueError, match="plane_mask"):
         tk.bitserial_matmul(x, planes, plane_mask=torch.ones((8, 2, 2),
                                                             dtype=torch.int8))
+
+
+def test_failed_build_raises_kernel_error(tmp_path, monkeypatch):
+    """A compiler that fails makes ``build`` raise ``KernelError``."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: injected' >&2\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(tk.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(tk, "_LIB", None)
+    with pytest.raises(tk.KernelError, match="injected"):
+        tk.build()
+    assert not list((tmp_path / "build").glob("*.so"))
 
 
 @pytest.fixture

@@ -8,6 +8,7 @@ import torch
 
 from repro.launch import serve as rserve
 from repro.models import inception as ri
+from repro_torch.kernels import bitserial_matmul as tk
 from repro_torch.launch import serve as tserve
 from repro_torch.models import inception as ti
 
@@ -78,6 +79,28 @@ def test_recovery_ladder_float_rung(tiny):
     assert req.degraded == "float" and port.degraded_batches == 1
     assert req.logits.shape == (tc.classes,)
     assert port.retries == 1
+
+
+@pytest.mark.parametrize("first_ok", [False, True])
+def test_kernel_error_is_not_served_degraded(tiny, first_ok):
+    """A kernel that fails to build or launch raises out of ``step`` at any
+    rung of the ladder; it is never answered from the float forward."""
+    rc, tc, _, tparams, images = tiny
+    port = tserve.NCServingEngine(tparams, tc, max_batch=2, device="cpu")
+    calls = []
+
+    def broken(x, schedule):
+        calls.append(schedule)
+        if first_ok and len(calls) == 1:
+            raise RuntimeError("transient")  # the ladder's retry then fails
+        raise tk.KernelError("bitserial_gemm launch failed: cudaError_t 209")
+
+    port._forward = broken
+    port.submit(tserve.NCRequest(rid=0, image=images[0]))
+    with pytest.raises(tk.KernelError, match="cudaError_t 209"):
+        port.run()
+    assert len(calls) == (2 if first_ok else 1)
+    assert not port.completed and port.degraded_batches == 0
 
 
 def test_warmup_replan_keeps_logits(tiny):
