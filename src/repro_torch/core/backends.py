@@ -22,12 +22,14 @@ Registered backends
 ``gemm``
     The counterpart of the reference's ``pallas-interpret`` adapter: decode
     both row-aligned word grids to integer row matrices on the tensors'
-    device, run ``kernels.ops.bitserial_matmul_exact`` (the Hopper kernel on
+    device, run ``kernels.ops.bitserial_matmul_exact`` (a Hopper kernel on
     a CUDA tensor, its plain version on a CPU tensor) and scatter the int32
-    result back into the broadcast grid.  Rows sharing words (``K <= 16``)
-    are decoded natively.  Delegated to ``walk``: more than 8 planes, an
-    accumulator narrower than the product, a possible int32 overflow, and
-    grids that do not separate.
+    result back into the broadcast grid.  When both operands fit 4 planes
+    and ``K >= 2`` the activations are nibble-packed and run through the
+    W4A4 kernel, as the reference's adapter routes them; otherwise the
+    8-bit kernel.  Rows sharing words (``K <= 16``) are decoded natively.
+    Delegated to ``walk``: more than 8 planes, an accumulator narrower than
+    the product, a possible int32 overflow, and grids that do not separate.
 """
 from __future__ import annotations
 
@@ -193,6 +195,7 @@ def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
     """Decode the two row-aligned word grids to integer row matrices, run the
     bit-serial GEMM and scatter the exact int32 result into the broadcast
     grid (each grid axis is owned by at most one operand)."""
+    from repro_torch.kernels import bitserial_matmul as _bsm
     from repro_torch.kernels import ops
 
     reason = _gemm_fallback_reason(xw, ww, K=K, acc_bits=acc_bits)
@@ -207,9 +210,15 @@ def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
     _note("gemm", native=True)
 
     P, wpr, r = bs._row_layout(K)
+    nx, nw = int(xw.shape[0]), int(ww.shape[0])
     planes = W.t().contiguous().to(torch.uint8)  # [K, Rw]: byte-packed planes
-    out = ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(), planes,
-                                     n_bits=int(ww.shape[0]))
+    if nx <= 4 and nw <= 4 and K >= 2:
+        # both operands fit 4 planes: the W4A4 kernel on nibble-packed rows
+        out = ops.bitserial_matmul_exact(
+            _bsm.pack_activation_nibbles(X), planes, n_bits=nw, w4a4=True)
+    else:
+        out = ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(),
+                                         planes, n_bits=nw)
     O = out.to(torch.int64).reshape(gx + gw)
     n_axes = len(gx)
     O = O.permute([a for i in range(n_axes) for a in (i, n_axes + i)])

@@ -25,8 +25,10 @@ Cycle-model invariants (the packed engine models the same hardware):
 
 :func:`packed_dot_words` charges :func:`dot_cycles` before it dispatches to
 a backend (core/backends.py), so modeled cycles cannot depend on the
-backend.  The reference's compressed filter store, ABFT checksums and the
-host walk's zero-word elision statistics are not part of this package yet.
+backend.  :class:`CompressedPlanes` is the CSR-per-bit-plane filter store
+and :func:`abft_checksums` / :func:`checksum_cycles` the ABFT integrity
+layer's references and price.  The reference host walk's zero-word
+elision statistics are not part of this package.
 """
 from __future__ import annotations
 
@@ -55,6 +57,9 @@ __all__ = [
     "selective_copy",
     "bitserial_max",
     "packed_dot_words",
+    "CompressedPlanes",
+    "abft_checksums",
+    "checksum_cycles",
     "OpCycles",
 ]
 
@@ -572,6 +577,145 @@ def packed_dot_words(xw: torch.Tensor, ww: torch.Tensor, *, K: int,
     n_bits = max(xw.shape[0], ww.shape[0])
     cycles = dot_cycles(K, n_bits, acc_bits)
     return backend.dot_words(xw, ww, K=K, acc_bits=acc_bits), cycles
+
+
+# ---------------------------------------------------------------------------
+# Compressed (CSR per bit plane) filter store.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class CompressedPlanes:
+    """CSR-style per-bit-plane filter store (EIE-inspired).
+
+    Instead of a dense ``(n_planes, n_columns, ...)`` word grid (one column
+    per filter), each bit plane keeps only its live columns (filters with
+    at least one set bit in that plane) as a sorted column index plus their
+    words.  :meth:`dense` reconstructs the grid byte-identically, so the
+    packed dot consumes exactly the words it would have seen uncompressed.
+    Byte counts are those of the modeled store: 4 bytes per 32-bit word
+    (the tensors hold them as int64) and a per-plane live-column bitmap of
+    ``ceil(n_columns / 8)`` bytes for each live plane."""
+
+    column_index: tuple  # per plane: sorted int64 live column ids
+    columns: tuple  # per plane: (n_live, *tail) words
+    n_columns: int  # dense column (filter) count
+    tail_shape: tuple  # per-column word shape of the dense grid
+
+    @property
+    def n_planes(self) -> int:
+        return len(self.column_index)
+
+    @property
+    def live_planes(self) -> int:
+        """Planes with at least one live column (the only ones stored)."""
+        return sum(1 for idx in self.column_index if idx.numel())
+
+    @property
+    def payload_bytes(self) -> int:
+        """Bytes of packed words stored (live columns only)."""
+        return sum(4 * c.numel() for c in self.columns)
+
+    @property
+    def index_bytes(self) -> int:
+        """Per-plane live-column bitmap bytes (live planes only)."""
+        return self.live_planes * (-(-self.n_columns // 8))
+
+    @property
+    def nbytes(self) -> int:
+        return self.payload_bytes + self.index_bytes
+
+    @classmethod
+    def compress(cls, words: torch.Tensor) -> "CompressedPlanes":
+        """Compress a dense per-plane filter word grid ``(n_planes,
+        n_columns, ...)`` (on any device) into CSR-per-plane form."""
+        if words.ndim < 2:
+            raise ValueError(f"expected (n_planes, n_columns, ...) words, "
+                             f"got {tuple(words.shape)}")
+        live = cls.live_columns(words)
+        index = tuple(torch.nonzero(live[p]).flatten()
+                      for p in range(words.shape[0]))
+        cols = tuple(words[p, index[p]].contiguous()
+                     for p in range(words.shape[0]))
+        return cls(column_index=index, columns=cols,
+                   n_columns=int(words.shape[1]),
+                   tail_shape=tuple(words.shape[2:]))
+
+    @staticmethod
+    def live_columns(words: torch.Tensor) -> torch.Tensor:
+        """``(n_planes, n_columns)`` bool: the columns a plane stores."""
+        tail = _numel(tuple(words.shape[2:]))
+        return (words.reshape(words.shape[0], words.shape[1], tail) != 0).any(
+            dim=2)
+
+    @classmethod
+    def split_bytes(cls, words: torch.Tensor,
+                    bounds: list[tuple[int, int]]) -> tuple[int, int]:
+        """``(payload, index)`` bytes summed over compressing each column
+        slice ``words[:, m0:m1]`` of ``bounds`` on its own, without building
+        the stores (a per-pass store, as an overlap plan keeps them)."""
+        live = cls.live_columns(words).to(torch.int64)  # (n, C)
+        tail = _numel(tuple(words.shape[2:]))
+        edges = torch.tensor([0] + [m1 for _, m1 in bounds],
+                             dtype=torch.int64, device=live.device)
+        csum = torch.cat([live.new_zeros((live.shape[0], 1)),
+                          live.cumsum(dim=1)], dim=1)
+        per = csum[:, edges[1:]] - csum[:, edges[:-1]]  # (n, tiles) live cols
+        widths = torch.tensor([-(-(m1 - m0) // 8) for m0, m1 in bounds],
+                              dtype=torch.int64, device=live.device)
+        payload = int(per.sum()) * tail * 4
+        index = int(((per > 0).to(torch.int64) * widths[None, :]).sum())
+        return payload, index
+
+    def dense(self) -> torch.Tensor:
+        """The dense ``(n_planes, n_columns, *tail_shape)`` word grid,
+        byte-identical to what :meth:`compress` consumed (dead columns and
+        planes come back as zero words, the multiply's identity)."""
+        return self.dense_columns(0, self.n_columns)
+
+    def dense_columns(self, start: int, stop: int) -> torch.Tensor:
+        """Columns ``[start, stop)`` of the dense grid, without
+        materializing the rest (two binary searches per plane)."""
+        if not (0 <= start <= stop <= self.n_columns):
+            raise ValueError(f"columns [{start}, {stop}) out of range for "
+                             f"{self.n_columns}")
+        ref = self.columns[0]
+        grid = ref.new_zeros((self.n_planes, stop - start) + self.tail_shape)
+        for p, (idx, cols) in enumerate(zip(self.column_index, self.columns)):
+            if idx.numel():
+                lo = int(torch.searchsorted(idx, start))
+                hi = int(torch.searchsorted(idx, stop))
+                if lo < hi:
+                    grid[p, idx[lo:hi] - start] = cols[lo:hi]
+        return grid
+
+
+# ---------------------------------------------------------------------------
+# ABFT integrity layer: checksum references over one pass's operands.
+# ---------------------------------------------------------------------------
+def abft_checksums(x_rows: torch.Tensor, w_rows: torch.Tensor):
+    """ABFT reference sums for one pass over clean unsigned operands.
+
+    The pass computes ``v[m, t] = w_m . x_t``; the column reference is
+    ``col[t] = x_t . sum_m(w_m)`` and the row reference
+    ``row[m] = sum_t(x_t) . w_m``.  Returns ``(col, row)`` as exact int64
+    vectors on the operands' device.
+
+    CUDA has no int64 matmul, so both products run in float64.  They are
+    exact: every partial sum is an integer at most ``K * 255 * T * 255``
+    (``T`` rows or filters summed), which at the largest full-width layer
+    (K = 2592, batch-4 rows) stays below 2^53."""
+    xr = x_rows.to(torch.float64)
+    wr = w_rows.to(torch.float64)
+    col = xr @ wr.sum(dim=0)
+    row = wr @ xr.sum(dim=0)
+    return col.to(torch.int64), row.to(torch.int64)
+
+
+def checksum_cycles(k: int, n_bits: int, acc_bits: int, rows: int,
+                    filters: int) -> int:
+    """Cycles to verify one pass of ``rows`` window rows x ``filters``
+    filter columns: one extra filter lane group dotted per row plus one
+    extra window row dotted per filter, each at :func:`dot_cycles`."""
+    return dot_cycles(k, n_bits, acc_bits) * (max(rows, 0) + max(filters, 0))
 
 
 # ---------------------------------------------------------------------------

@@ -13,18 +13,28 @@ launch per planned tile would not.  The plan's tiles are still reported
 (``ConvStats.tiles``/``tile_pixels``/``tile_filters``).  Only a backend with
 a grid cap (``walk``) splits the rows into chunks.  Overlap plans execute
 serially (results are byte-identical by the reference's own contract) and
-report ``overlap`` as the reference does.  ABFT integrity and compressed
-filter residency are not part of this package yet and raise.
+report ``overlap`` as the reference does.
+
+Compressed plans keep the filters as a
+:class:`~repro_torch.core.bitserial.CompressedPlanes` store and feed its
+byte-identical reconstruction to the dot.  Integrity plans and active
+fault scopes (``core/faults.py``) take the checked path
+(:func:`_checked_passes`): all passes are verified at once against their
+ABFT checksums, then walked in the reference's order so that fault draws,
+retries, quarantines and every counter equal the reference's serial loop;
+only a pass a fault hits runs again on its own.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.core import backends as _backends
 from repro_torch.core import bitserial as bs
+from repro_torch.core import faults
 from repro_torch.core import quantize as q
 from repro_torch.core import schedule as sched
 from repro_torch.core.cache_geometry import CacheGeometry, XEON_E5_35MB
@@ -161,13 +171,13 @@ def _pack_w_rows(rows: torch.Tensor, n_bits: int) -> torch.Tensor:
     return out[:, :, None]
 
 
-def _dot_rows(win_flat: torch.Tensor, w_rows: torch.Tensor, x_bits: int,
-              w_bits: int, K: int, acc_bits: int, engine: str) -> torch.Tensor:
-    """All (row, filter) dots of a layer: ``[rows, M]`` int64, in one
+def _dot_rows(win_flat: torch.Tensor, ww: torch.Tensor, x_bits: int, K: int,
+              acc_bits: int, engine: str) -> torch.Tensor:
+    """All (row, filter) dots of a layer: ``[rows, M]`` int64 for the filter
+    word grid ``ww`` (``_pack_w_rows``'s layout), in one
     ``packed_dot_words`` call unless the backend caps its grid."""
-    T, M = win_flat.shape[0], w_rows.shape[0]
+    T, M = win_flat.shape[0], ww.shape[1]
     P, wpr, r = bs._row_layout(K)
-    ww = _pack_w_rows(w_rows, w_bits)
     cap = _backends.get_backend(engine).max_grid_words
     chunk = T
     if cap is not None:
@@ -181,6 +191,177 @@ def _dot_rows(win_flat: torch.Tensor, w_rows: torch.Tensor, x_bits: int,
                                       engine=engine)
         out[t0:t1] = vals.reshape(M, -1)[:, : t1 - t0].t()
     return out
+
+
+def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
+                    w_rows: torch.Tensor, ww_all: torch.Tensor, *,
+                    p_tiles, m_tiles, tile_rows: int, tile_filters: int,
+                    x_bits: int, K: int, acc_bits: int, engine: str,
+                    per_dot: int, integrity_on: bool, fs, spec, geom, B: int,
+                    plan):
+    """The checked path: every planned pass, in the reference's order, under
+    ABFT verification and/or fault injection.
+
+    ``vals`` (``[rows, live filters]``) holds the layer's clean dots from one
+    call; this verifies every pass at once against its checksum references
+    (per-pass column and row sums) and then walks the passes serially as
+    the reference does: the fault draws, retries, quarantine and re-plan
+    happen pass by pass, but a pass whose operands and values nothing
+    corrupted reads its slice of ``vals`` and its bulk verdict.  A pass
+    that a fault hits runs alone through ``packed_dot_words`` (the
+    corrupted execution and every re-execution), is verified on its own
+    and writes its final values back into ``vals``.  Returns the counters
+    and the effective plan."""
+    dev = vals.device
+    rows_total, M_live = vals.shape
+    P_lay, _, r_lay = bs._row_layout(K)
+    n_pt, n_mt = len(p_tiles), len(m_tiles)
+    row_tile = torch.arange(rows_total, device=dev) // tile_rows
+    col_tile = torch.arange(M_live, device=dev) // tile_filters
+    x64 = win_flat.to(torch.int64)
+    w64 = w_rows.to(torch.int64)
+    wsum = torch.zeros((n_mt, K), dtype=torch.int64, device=dev).index_add_(
+        0, col_tile, w64)
+    # live lanes: where an activation-side flip meets a nonzero filter of
+    # the pass, and where a filter-side flip meets a nonzero window row
+    # riding bit slot 0 (the replica the injector flips when rows share
+    # words)
+    lanes_a_mask = (wsum > 0).cpu().numpy()
+    slot0 = (torch.arange(rows_total, device=dev) % tile_rows) % r_lay == 0
+    xsum0 = torch.zeros((n_pt, K), dtype=torch.int64, device=dev).index_add_(
+        0, row_tile[slot0], x64[slot0])
+    lanes_f_mask = (xsum0 > 0).cpu().numpy()
+    if integrity_on:
+        # the checksum references of every pass (bs.abft_checksums per
+        # pass, in two float64 products; exact, see there) against the
+        # observed column and row sums of the clean dots
+        xsum = torch.zeros((n_pt, K), dtype=torch.int64,
+                           device=dev).index_add_(0, row_tile, x64)
+        col_ref = (win_flat.to(torch.float64)
+                   @ wsum.t().to(torch.float64)).to(torch.int64)
+        row_ref = (xsum.to(torch.float64)
+                   @ w64.t().to(torch.float64)).to(torch.int64)
+        col_obs = torch.zeros((rows_total, n_mt), dtype=torch.int64,
+                              device=dev).index_add_(1, col_tile, vals)
+        row_obs = torch.zeros((n_pt, M_live), dtype=torch.int64,
+                              device=dev).index_add_(0, row_tile, vals)
+        bad = torch.zeros((n_pt, n_mt), dtype=torch.int64, device=dev)
+        bad.index_add_(0, row_tile, (col_obs != col_ref).to(torch.int64))
+        bad.index_add_(1, col_tile, (row_obs != row_ref).to(torch.int64))
+        bad = (bad > 0).cpu().numpy()
+    lanes_f: dict = {}
+    lanes_a: dict = {}
+    x_cache: dict = {}
+
+    def _x_tile(pi: int) -> torch.Tensor:
+        xw = x_cache.get(pi)
+        if xw is None:
+            x_cache.clear()  # row tiles behind the walk are done
+            p0, p1 = p_tiles[pi]
+            xw = x_cache[pi] = _pack_x_rows(win_flat[p0:p1], x_bits)
+        return xw
+
+    def _lanes(cache, mask, i):
+        got = cache.get(i)
+        if got is None:
+            got = cache[i] = np.flatnonzero(mask[i])
+        return got
+
+    n_tiles = verify_passes = reexec_passes = faults_detected = 0
+    integrity_cycles = reexec_cycles = 0
+    eff_plan = plan
+    max_retries = fs.profile.max_retries if fs is not None else 1
+    t = -1
+    for pi in range(n_pt):
+        p0, p1 = p_tiles[pi]
+        for mi in range(n_mt):
+            t += 1
+            m0, m1 = m_tiles[mi]
+            bulk = vals[p0:p1, m0:m1].t()  # (filters, rows), as the engine
+            attempts = execs = quarantine_rounds = 0
+            while True:
+                execs += 1
+                xw = _x_tile(pi)
+                ww = ww_all[:, m0:m1]
+                corrupted = False
+                if fs is not None:
+                    fs.maybe_stall(spec.name, t)
+                    ww2 = fs.corrupt_filter_words(
+                        ww, spec.name, t,
+                        lanes=_lanes(lanes_f, lanes_f_mask, pi),
+                        filters=m1 - m0, P=P_lay, r=r_lay)
+                    xw2 = fs.corrupt_act_words(
+                        xw, spec.name, t,
+                        lanes=_lanes(lanes_a, lanes_a_mask, mi),
+                        rows=p1 - p0, P=P_lay, r=r_lay)
+                    corrupted = ww2 is not ww or xw2 is not xw
+                    xw, ww = xw2, ww2
+                if corrupted or execs > 1:
+                    out, _ = bs.packed_dot_words(xw, ww, K=K,
+                                                 acc_bits=acc_bits,
+                                                 engine=engine)
+                    v2 = out[: m1 - m0, : p1 - p0]
+                else:
+                    v2 = bulk
+                if fs is not None:
+                    v3 = fs.corrupt_values(v2, spec.name, t,
+                                           filters=m1 - m0, rows=p1 - p0)
+                    corrupted = corrupted or v3 is not v2
+                    v2 = v3
+                    if corrupted:
+                        fs.note_corrupt_attempt()
+                if execs == 1:
+                    n_tiles += 1
+                else:
+                    reexec_passes += 1
+                    reexec_cycles += per_dot * (p1 - p0) * (m1 - m0)
+                    if fs is not None:
+                        fs.note_reexecution()
+                if not integrity_on:
+                    break  # faults without checking: corruption flows through
+                verify_passes += 1
+                integrity_cycles += per_dot * ((p1 - p0) + (m1 - m0))
+                if v2 is bulk:
+                    ok = not bad[pi, mi]
+                else:
+                    ok = (bool((v2.sum(dim=0) == col_ref[p0:p1, mi]).all())
+                          and bool((v2.sum(dim=1)
+                                    == row_ref[pi, m0:m1]).all()))
+                if ok:
+                    break
+                faults_detected += 1
+                if fs is not None:
+                    fs.note_detected()
+                attempts += 1
+                if attempts <= max_retries:
+                    continue
+                # retry budget exhausted: only a persistent (stuck-at) fault
+                # survives clean re-execution, so quarantine the pass's
+                # slice, re-plan over the survivors and grant one fresh
+                # budget; unrecoverable passes raise
+                sid = fs.slice_for(spec.name, t) if fs is not None else None
+                can_quarantine = (
+                    fs is not None and sid is not None
+                    and sid not in fs.quarantined
+                    and len(fs.quarantined) < geom.n_slices - 1
+                    and quarantine_rounds < geom.n_slices)
+                if not can_quarantine:
+                    raise faults.IntegrityError(spec.name, t, attempts)
+                fs.quarantine(sid)
+                quarantine_rounds += 1
+                eff_plan = sched.plan_layer(
+                    spec, geom, batch=B, tile_pixels=tile_rows,
+                    tile_filters=tile_filters, occupancy=plan.occupancy,
+                    overlap=plan.overlap, integrity=True,
+                    quarantined_slices=tuple(sorted(fs.quarantined)),
+                    compressed=plan.compressed)
+                attempts = 0
+            if v2 is not bulk:
+                vals[p0:p1, m0:m1] = v2.t()
+    return dict(tiles=n_tiles, verify_passes=verify_passes,
+                reexec_passes=reexec_passes, faults_detected=faults_detected,
+                integrity_cycles=integrity_cycles,
+                reexec_cycles=reexec_cycles, plan=eff_plan)
 
 
 def nc_conv2d(
@@ -212,9 +393,14 @@ def nc_conv2d(
     :class:`ConvStats` with ``return_stats=True``), equal to the reference.
 
     Plans, sparsity (``occupancy``: pruned filters are filled from the
-    affine identity ``zw * sum(x)``), overlap and the backend pin follow
-    the reference's rules and precedence (explicit ``engine=`` > the plan's
-    ``backend`` > ``NC_TORCH_BACKEND`` > ``gemm``)."""
+    affine identity ``zw * sum(x)``), overlap, integrity, compression and
+    the backend pin follow the reference's rules and precedence (explicit
+    ``engine=`` > the plan's ``backend`` > ``NC_TORCH_BACKEND`` > ``gemm``).
+    Under ``integrity`` every pass is verified against its ABFT checksums;
+    detected corruption is re-executed, and under an active fault scope a
+    stuck slice is quarantined and the layer re-planned (``ConvStats.plan``
+    is then the effective plan); an unrecoverable pass raises
+    :class:`~repro_torch.core.faults.IntegrityError`."""
     batched = x.ndim == 4
     x4 = x if batched else x[None]
     dev = x4.device
@@ -301,14 +487,6 @@ def nc_conv2d(
                                 overlap=overlap, integrity=integrity,
                                 quarantined_slices=quarantined,
                                 compressed=compressed, backend=backend_pin)
-    if plan.integrity:
-        raise NotImplementedError(
-            "ABFT integrity checking comes with the port's faults/integrity "
-            "slice; plan without integrity=True")
-    if plan.compressed:
-        raise NotImplementedError(
-            "compressed (CSR bit-plane) filter residency comes with the "
-            "port's CompressedPlanes slice; plan without compressed=True")
     engine = _backends.resolve_backend(engine, plan.backend)
     tile_rows = max(1, min(plan.tile_rows, rows_total))
     tile_filters = max(1, min(plan.tile_filters, M))
@@ -335,13 +513,45 @@ def nc_conv2d(
     w_rows_live = w_rows if live_idx is None else w_rows[live_idx]
     M_live = w_rows_live.shape[0]
     per_dot = bs.dot_cycles(K, n_bits, acc_bits)
+    overlap_exec = bool(plan.overlap)
+    compressed_exec = bool(plan.compressed)
+    fs = faults.active()
+    integrity_on = bool(plan.integrity)
+    checked = integrity_on or fs is not None
+    p_tiles = ([(p0, min(p0 + tile_rows, rows_total))
+                for p0 in range(0, rows_total, tile_rows)] if M_live else [])
+    m_tiles = [(m0, min(m0 + tile_filters, M_live))
+               for m0 in range(0, M_live, tile_filters)]
     out = torch.empty((rows_total, M), dtype=torch.int64, device=dev)
-    n_tiles = 0
+    csr_bytes = (0, 0)  # measured (payload, index) bytes of the CSR store
+    run = dict(tiles=0, verify_passes=0, reexec_passes=0, faults_detected=0,
+               integrity_cycles=0, reexec_cycles=0, plan=plan)
     if M_live:
-        # the plan's tiles, reported as planned; executed as one dot call
-        n_tiles = -(-rows_total // tile_rows) * -(-M_live // tile_filters)
-        vals = _dot_rows(win_flat, w_rows_live, x_qps[0].bits, w_qp.bits, K,
-                         acc_bits, engine)
+        # filters packed once per layer per batch
+        ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
+        if compressed_exec:
+            # the CSR-per-bit-plane store stays resident and the dot
+            # consumes its byte-identical reconstruction.  An overlap plan
+            # keeps one store per pass's filter columns: its bytes are the
+            # sum over the passes' stores, as the reference reports them
+            store = bs.CompressedPlanes.compress(ww_all)
+            csr_bytes = (bs.CompressedPlanes.split_bytes(ww_all, m_tiles)
+                         if overlap_exec
+                         else (store.payload_bytes, store.index_bytes))
+            ww_all = store.dense()
+        vals = _dot_rows(win_flat, ww_all, x_qps[0].bits, K, acc_bits,
+                         engine)
+        if checked:
+            run = _checked_passes(
+                vals, win_flat, w_rows_live, ww_all, p_tiles=p_tiles,
+                m_tiles=m_tiles, tile_rows=tile_rows,
+                tile_filters=tile_filters, x_bits=x_qps[0].bits, K=K,
+                acc_bits=acc_bits, engine=engine, per_dot=per_dot,
+                integrity_on=integrity_on, fs=fs, spec=spec, geom=geom, B=B,
+                plan=plan)
+        else:
+            # the plan's tiles, reported as planned; executed as one call
+            run["tiles"] = len(p_tiles) * len(m_tiles)
         if live_idx is None:
             out = vals
         else:
@@ -352,6 +562,9 @@ def nc_conv2d(
         row_sums = win_flat.sum(dim=1, dtype=torch.int64)
         out[:, zero_mask] = zw_int * row_sums[:, None]
     total_cycles = per_dot * rows_total * M_live
+    # checksum verifications and re-executed passes charge the same §III
+    # formulas as the real work: an additive term, zero when unchecked
+    total_cycles += run["integrity_cycles"] + run["reexec_cycles"]
 
     # affine zero-point correction (exact integer identity, per image)
     sx = win.sum(dim=-1, dtype=torch.int64)  # (B, E, F)
@@ -366,22 +579,32 @@ def nc_conv2d(
     cx = (win_flat != 0).sum(dim=0, dtype=torch.int64)
     cw = (w_rows != 0).sum(dim=0, dtype=torch.int64)
     live = int((cx * cw).sum())
+    eff_plan = run["plan"]
     stats = ConvStats(
         lanes=rows_total * M * K,
         zero_operand_lanes=rows_total * M * K - live,
-        tiles=n_tiles,
+        tiles=run["tiles"],
         tile_pixels=tile_rows,
         tile_filters=tile_filters,
-        serial_passes=plan.serial_passes,
+        serial_passes=eff_plan.serial_passes,
         engine_words_total=0,
         engine_words_skipped=0,
         batch=B,
         filter_loads=1,
         zero_filters=M - M_live,
-        skipped_passes=plan.skipped_passes,
-        overlap=bool(plan.overlap),
-        quarantined_slices=plan.quarantined_slices,
-        plan=plan,
+        skipped_passes=eff_plan.skipped_passes,
+        overlap=overlap_exec and not checked,  # checked passes run serially
+        integrity=integrity_on,
+        verify_passes=run["verify_passes"],
+        reexec_passes=run["reexec_passes"],
+        faults_detected=run["faults_detected"],
+        integrity_cycles=run["integrity_cycles"],
+        reexec_cycles=run["reexec_cycles"],
+        quarantined_slices=eff_plan.quarantined_slices,
+        compressed=compressed_exec,
+        csr_payload_bytes=csr_bytes[0],
+        csr_index_bytes=csr_bytes[1],
+        plan=eff_plan,
     )
     return result, total_cycles, stats
 

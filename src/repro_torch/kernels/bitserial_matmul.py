@@ -1,23 +1,27 @@
-"""Bit-serial GEMM: the hand-written Hopper kernel, its build and its plain
-version.
+"""Bit-serial GEMMs: the hand-written Hopper kernels, their build and their
+plain versions.
 
     out = sum_b pw[b] * (x @ plane_b),  pw[b] = 2^b  (MSB: -2^(n-1) if signed)
 
 ``planes`` is the byte-packed ``[K, N]`` uint8 format (bit ``b`` of each byte
-is plane ``b``); ``x`` is ``[M, K]`` uint8 or int8.  The epilogue returns the
-exact int32 accumulator (``out_dtype=torch.int32``) or the dequantized
-``f32(acc) * x_scale * w_scale[n]``.  ``plane_mask`` is the
-``[n_bits, ceil(K/block_k), ceil(N/block_n)]`` int8 occupancy of the
-reference kernel (``repro.kernels.bitserial_matmul.plane_block_mask``): a
-zero entry drops that plane's contribution on that block.
+is plane ``b``).  :func:`bitserial_matmul` takes 8-bit activations ``x``
+``[M, K]`` uint8 or int8; :func:`bitserial_matmul_a4` takes 4-bit
+activations nibble-packed two per byte (:func:`pack_activation_nibbles`)
+and at most 4 planes.  The epilogue returns the exact int32 accumulator
+(``out_dtype=torch.int32``) or the dequantized
+``f32(acc) * x_scale * w_scale[n]``.  ``plane_mask`` is the per-(plane,
+K-block, N-block) int8 occupancy of the reference kernels
+(``repro.kernels.bitserial_matmul.plane_block_mask``): a zero entry drops
+that plane's contribution on that block.
 
-:func:`bitserial_matmul` launches the CUDA kernel in
-``src/repro_torch/csrc/bitserial_gemm.cu`` for CUDA tensors and runs
-:func:`bitserial_matmul_plain` for CPU tensors.  It never falls back on a
-CUDA tensor: a kernel that does not build, or a launch that fails, raises
+The wrappers launch the CUDA kernels in ``src/repro_torch/csrc/``
+(``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``) for CUDA tensors and run
+the plain versions for CPU tensors.  They never fall back on a CUDA
+tensor: a kernel that does not build, or a launch that fails, raises
 :class:`KernelError`, which the serving engine's recovery ladder re-raises.
-The kernel is compiled with ``nvcc`` on first use into ``build/kernels/``
-at the repository root and loaded through ``ctypes``.
+Each source is compiled with ``nvcc`` on first use into ``build/kernels/``
+at the repository root, keyed by the hash of its own text, and loaded
+through ``ctypes``.
 """
 from __future__ import annotations
 
@@ -33,19 +37,36 @@ import threading
 import torch
 
 __all__ = ["KernelError", "bitserial_matmul", "bitserial_matmul_plain",
-           "build", "build_log", "plane_block_mask"]
+           "bitserial_matmul_a4", "bitserial_matmul_a4_plain",
+           "pack_activation_nibbles", "unpack_activation_nibbles",
+           "build", "build_all", "build_log", "plane_block_mask"]
 
-DEFAULT_BK = 256  # the reference kernel's block sizes: the mask granularity
+DEFAULT_BK = 256  # the reference kernels' block sizes: the mask granularity
 DEFAULT_BN = 128
+DEFAULT_BK2 = DEFAULT_BK // 2  # packed activation bytes per a4 K-block
 
-_SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "bitserial_gemm.cu"
+_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-_LIB: ctypes.CDLL | None = None
+_C = ctypes
+# kernel name -> the ctypes signature of its launcher (the source is
+# csrc/<name>.cu and the launcher is the extern "C" function <name>)
+_SIGNATURES = {
+    "bitserial_gemm": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
+                       _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
+                       _C.c_float, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
+                       _C.c_int, _C.c_int, _C.c_int, _C.c_void_p],
+    "bitserial_gemm_a4": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
+                          _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+                          _C.c_void_p, _C.c_float, _C.c_void_p, _C.c_int,
+                          _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
+                          _C.c_int, _C.c_void_p],
+}
+_LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()
 
 
 class KernelError(RuntimeError):
-    """The kernel did not build or its launch failed."""
+    """A kernel did not build or its launch failed."""
 
 
 def _nvcc() -> str:
@@ -55,55 +76,81 @@ def _nvcc() -> str:
     default = pathlib.Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise KernelError("nvcc not found: the bitserial_gemm kernel cannot be "
-                      "built (install the CUDA toolkit or put nvcc on PATH)")
+    raise KernelError("nvcc not found: the bit-serial GEMM kernels cannot "
+                      "be built (install the CUDA toolkit or put nvcc on "
+                      "PATH)")
 
 
-def build() -> ctypes.CDLL:
-    """Compile (once per source version) and load the kernel library.  The
-    compiler's ``-Xptxas -v`` report is kept beside it (``build_log``)."""
-    global _LIB
+def _lib_path(name: str) -> pathlib.Path:
+    source = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+    return _BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _load(name: str) -> ctypes.CDLL:
+    lib_path = _lib_path(name)
+    try:
+        lib = ctypes.CDLL(str(lib_path))
+    except OSError as e:
+        raise KernelError(f"cannot load {lib_path}: {e}") from e
+    fn = getattr(lib, name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
+    """Compile the kernels of ``names`` that are not built for their
+    current source, one ``nvcc`` per source, all started together, then
+    load them.  The compiler's ``-Xptxas -v`` report is kept beside each
+    library (:func:`build_log`)."""
     with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-        lib_path = _BUILD_DIR / f"libbitserial_gemm-{digest}.so"
-        if not lib_path.exists():
+        todo = [n for n in names if n not in _LIBS]
+        procs = []
+        for name in todo:
+            lib_path = _lib_path(name)
+            if lib_path.exists():
+                continue
             _BUILD_DIR.mkdir(parents=True, exist_ok=True)
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
             os.close(fd)
             cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+                   "-Xptxas", "-v", "-o", tmp, str(_CSRC / f"{name}.cu")]
+            procs.append((name, lib_path, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failures = []
+        for name, lib_path, tmp, proc in procs:
+            _, err = proc.communicate()
             if proc.returncode != 0:
                 os.unlink(tmp)
-                raise KernelError(f"nvcc failed ({proc.returncode}):\n"
-                                  f"{proc.stderr}")
+                failures.append(f"{name}: nvcc failed ({proc.returncode}):\n"
+                                f"{err}")
+                continue
             os.replace(tmp, lib_path)
             # keep the compiler's report (registers, shared memory, spills)
-            lib_path.with_suffix(".log").write_text(proc.stderr)
-        try:
-            lib = ctypes.CDLL(str(lib_path))
-        except OSError as e:
-            raise KernelError(f"cannot load {lib_path}: {e}") from e
-        fn = lib.bitserial_gemm
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-        return lib
+            lib_path.with_suffix(".log").write_text(err)
+        if failures:
+            raise KernelError("\n".join(failures))
+        for name in todo:
+            _LIBS[name] = _load(name)
+        return {n: _LIBS[n] for n in names}
 
 
-def build_log() -> str:
+def build(name: str = "bitserial_gemm") -> ctypes.CDLL:
+    """Compile (once per source version) and load one kernel library."""
+    if name not in _SIGNATURES:
+        raise ValueError(f"unknown kernel {name!r}; known: "
+                         f"{', '.join(_SIGNATURES)}")
+    lib = _LIBS.get(name)
+    return lib if lib is not None else build_all((name,))[name]
+
+
+def build_log(name: str = "bitserial_gemm") -> str:
     """The ``-Xptxas -v`` report of the current source's build ('' if the
     library was built elsewhere)."""
-    digest = hashlib.sha256(_SOURCE.read_bytes()).hexdigest()[:12]
-    log = _BUILD_DIR / f"libbitserial_gemm-{digest}.log"
+    log = _lib_path(name).with_suffix(".log")
     return log.read_text() if log.exists() else ""
 
 
@@ -161,25 +208,21 @@ def _check(x, planes, x_scale, w_scale, plane_mask, n_bits, out_dtype,
     return M, N, K, bk, bn
 
 
-def bitserial_matmul_plain(x: torch.Tensor, planes: torch.Tensor,
-                           x_scale: float = 1.0,
-                           w_scale: torch.Tensor | None = None,
-                           plane_mask: torch.Tensor | None = None, *,
-                           n_bits: int = 8, out_dtype=torch.float32,
-                           signed: bool = True, block_k: int = DEFAULT_BK,
-                           block_n: int = DEFAULT_BN) -> torch.Tensor:
-    """The same function in plain torch, on the operands' device.
+def _plain_gemm(xf: torch.Tensor, p: torch.Tensor, x_scale, w_scale,
+                plane_mask, bk: int, bn: int, n_bits: int, out_dtype,
+                signed: bool) -> torch.Tensor:
+    """The bit-serial GEMM of float64 activations ``xf`` ``[M, K]`` and int64
+    byte-packed planes ``p`` ``[K, N]`` in plain torch; the mask's K-blocks
+    span ``bk`` rows.
 
     Each plane product runs as a float64 matmul: CUDA has no integer
     matmul, and float64 is exact here because every partial sum is an
     integer below ``K * 255 < 2^53``.  Plane sums accumulate in int64 and
-    wrap to int32 at the end, which equals the kernel's modulo-2^32 int32
+    wrap to int32 at the end, which equals the kernels' modulo-2^32 int32
     accumulation."""
-    M, N, K, bk, bn = _check(x, planes, x_scale, w_scale, plane_mask, n_bits,
-                             out_dtype, block_k, block_n)
-    xf = x.to(torch.float64)
-    p = planes.to(torch.int64)
-    acc = torch.zeros((M, N), dtype=torch.int64, device=x.device)
+    M, K = xf.shape
+    N = p.shape[1]
+    acc = torch.zeros((M, N), dtype=torch.int64, device=xf.device)
     for b in range(n_bits):
         plane = (p >> b) & 1
         if plane_mask is not None:
@@ -191,11 +234,43 @@ def bitserial_matmul_plain(x: torch.Tensor, planes: torch.Tensor,
     acc32 = (torch.remainder(acc + (1 << 31), 1 << 32) - (1 << 31)).to(torch.int32)
     if out_dtype == torch.int32:
         return acc32
-    ws = (torch.ones(N, dtype=torch.float32, device=x.device)
+    ws = (torch.ones(N, dtype=torch.float32, device=xf.device)
           if w_scale is None else w_scale.to(torch.float32))
     out = acc32.to(torch.float32) * torch.tensor(
-        x_scale, dtype=torch.float32, device=x.device)
+        x_scale, dtype=torch.float32, device=xf.device)
     return out * ws[None, :]
+
+
+def bitserial_matmul_plain(x: torch.Tensor, planes: torch.Tensor,
+                           x_scale: float = 1.0,
+                           w_scale: torch.Tensor | None = None,
+                           plane_mask: torch.Tensor | None = None, *,
+                           n_bits: int = 8, out_dtype=torch.float32,
+                           signed: bool = True, block_k: int = DEFAULT_BK,
+                           block_n: int = DEFAULT_BN) -> torch.Tensor:
+    """The same function as :func:`bitserial_matmul` in plain torch, on the
+    operands' device."""
+    M, N, K, bk, bn = _check(x, planes, x_scale, w_scale, plane_mask, n_bits,
+                             out_dtype, block_k, block_n)
+    return _plain_gemm(x.to(torch.float64), planes.to(torch.int64), x_scale,
+                       w_scale, plane_mask, bk, bn, n_bits, out_dtype, signed)
+
+
+def _prepare_launch(tensors, w_scale, plane_mask, dev):
+    """Validate that every operand of a kernel launch is a contiguous
+    tensor on one CUDA device, with float32 scales and an int8 mask."""
+    for name, t in tensors:
+        if t is None:
+            continue
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernel needs "
+                             f"every operand on one CUDA device ({dev})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if w_scale is not None and w_scale.dtype != torch.float32:
+        raise TypeError(f"w_scale must be float32, got {w_scale.dtype}")
+    if plane_mask is not None and plane_mask.dtype != torch.int8:
+        raise TypeError(f"plane_mask must be int8, got {plane_mask.dtype}")
 
 
 def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
@@ -216,26 +291,14 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
     M, N, K, bk, bn = _check(x, planes, x_scale, w_scale, plane_mask, n_bits,
                              out_dtype, block_k, block_n)
     dev = x.device
-    tensors = [("x", x), ("planes", planes), ("w_scale", w_scale),
-               ("plane_mask", plane_mask)]
-    for name, t in tensors:
-        if t is None:
-            continue
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs "
-                             f"every operand on one CUDA device ({dev})")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if w_scale is not None and w_scale.dtype != torch.float32:
-        raise TypeError(f"w_scale must be float32, got {w_scale.dtype}")
-    if plane_mask is not None and plane_mask.dtype != torch.int8:
-        raise TypeError(f"plane_mask must be int8, got {plane_mask.dtype}")
+    _prepare_launch([("x", x), ("planes", planes), ("w_scale", w_scale),
+                     ("plane_mask", plane_mask)], w_scale, plane_mask, dev)
     if out_dtype == torch.float32 and w_scale is None:
         w_scale = torch.ones(N, dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    lib = build()
+    lib = build("bitserial_gemm")
     nk, nn = -(-K // bk), -(-N // bn)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -253,3 +316,141 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
 
 
 bitserial_matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# W4A4: nibble-packed activations, at most 4 weight planes.
+# ---------------------------------------------------------------------------
+def pack_activation_nibbles(x_q: torch.Tensor) -> torch.Tensor:
+    """4-bit activations ``[M, K]`` (any integer dtype; the low nibble of
+    each value is kept, two's complement for negatives) -> ``[M,
+    ceil(K/2)]`` uint8, two elements per byte with the even element in the
+    low nibble (``repro.kernels.ref.pack_activation_nibbles``)."""
+    x = x_q.to(torch.int64)
+    if x.shape[-1] % 2:
+        x = torch.nn.functional.pad(x, (0, 1))
+    lo = x[:, 0::2] & 0xF
+    hi = x[:, 1::2] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_activation_nibbles(packed: torch.Tensor, K: int) -> torch.Tensor:
+    """Inverse of :func:`pack_activation_nibbles`: ``[M, K2]`` uint8 ->
+    ``[M, K]`` int8 with 4-bit sign extension."""
+    b = packed.to(torch.int64)
+    even = ((b & 0xF) ^ 8) - 8
+    odd = ((b >> 4) ^ 8) - 8
+    full = torch.stack([even, odd], dim=-1).reshape(b.shape[0], -1)
+    return full[:, :K].to(torch.int8)
+
+
+def _check_a4(x_packed, planes, w_scale, plane_mask, n_bits, out_dtype,
+              block_k2, block_n):
+    """Validate the W4A4 operands; returns ``(M, N, K, K2, bk2, bn)``."""
+    if x_packed.ndim != 2 or planes.ndim != 2:
+        raise ValueError(f"x_packed and planes must be 2-D, got "
+                         f"{tuple(x_packed.shape)} and {tuple(planes.shape)}")
+    if x_packed.dtype != torch.uint8:
+        raise TypeError(f"x_packed must be nibble-packed uint8, got "
+                        f"{x_packed.dtype}")
+    if planes.dtype != torch.uint8:
+        raise TypeError(f"planes must be byte-packed uint8, got {planes.dtype}")
+    M, K2 = x_packed.shape
+    K, N = planes.shape
+    if not K <= 2 * K2:
+        raise ValueError(f"x_packed holds {2 * K2} nibbles per row but "
+                         f"planes has K={K}")
+    if not 1 <= n_bits <= 4:
+        raise ValueError(f"n_bits must be in 1..4, got {n_bits}")
+    if out_dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"out_dtype must be int32 or float32, got {out_dtype}")
+    if max(M, N, 2 * K2) >= 1 << 31:
+        raise ValueError(f"shape {(M, N, K)} exceeds the int32 index range")
+    if w_scale is not None and tuple(w_scale.shape) != (N,):
+        raise ValueError(f"w_scale must be [{N}], got {tuple(w_scale.shape)}")
+    bk2, bn = min(block_k2, max(K2, 1)), min(block_n, max(N, 1))
+    if plane_mask is not None:
+        want = (n_bits, -(-K2 // bk2), -(-N // bn))
+        if tuple(plane_mask.shape) != want:
+            raise ValueError(f"plane_mask must be {want}, got "
+                             f"{tuple(plane_mask.shape)}")
+    return M, N, K, K2, bk2, bn
+
+
+def bitserial_matmul_a4_plain(x_packed: torch.Tensor, planes: torch.Tensor,
+                              x_scale: float = 1.0,
+                              w_scale: torch.Tensor | None = None,
+                              plane_mask: torch.Tensor | None = None, *,
+                              n_bits: int = 4, out_dtype=torch.float32,
+                              signed: bool = True,
+                              block_k2: int = DEFAULT_BK2,
+                              block_n: int = DEFAULT_BN) -> torch.Tensor:
+    """The same function as :func:`bitserial_matmul_a4` in plain torch, on
+    the operands' device: unpack the nibbles, pad an odd K's dangling
+    weight row with zeros, and run the 8-bit plain GEMM with the mask's
+    K-blocks spanning ``2 * block_k2`` rows."""
+    M, N, K, K2, bk2, bn = _check_a4(x_packed, planes, w_scale, plane_mask,
+                                     n_bits, out_dtype, block_k2, block_n)
+    b = x_packed.to(torch.int64)
+    if signed:
+        even, odd = ((b & 0xF) ^ 8) - 8, ((b >> 4) ^ 8) - 8
+    else:
+        even, odd = b & 0xF, b >> 4
+    xf = torch.stack([even, odd], dim=-1).reshape(M, 2 * K2)
+    p = planes.to(torch.int64)
+    if K < 2 * K2:
+        p = torch.nn.functional.pad(p, (0, 0, 0, 2 * K2 - K))
+    return _plain_gemm(xf.to(torch.float64), p, x_scale, w_scale, plane_mask,
+                       2 * bk2, bn, n_bits, out_dtype, signed)
+
+
+def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
+                        x_scale: float = 1.0,
+                        w_scale: torch.Tensor | None = None,
+                        plane_mask: torch.Tensor | None = None, *,
+                        n_bits: int = 4, out_dtype=torch.float32,
+                        signed: bool = True, block_k2: int = DEFAULT_BK2,
+                        block_n: int = DEFAULT_BN) -> torch.Tensor:
+    """W4A4 bit-serial GEMM with nibble-packed activations ``x_packed``
+    ``[M, ceil(K/2)]`` and byte-packed planes ``[K, N]`` (``n_bits <= 4``).
+    ``signed`` sign-extends the nibbles and gives the MSB plane weight
+    ``-2^(n-1)``; unsigned reads both as plain binary.  ``plane_mask`` is
+    ``[n_bits, ceil(K2/bk2), ceil(N/bn)]`` with K-blocks of ``2 * bk2``
+    weight rows.  CUDA tensors launch the Hopper kernel (and add one to
+    ``bitserial_matmul_a4.launches``); CPU tensors run
+    :func:`bitserial_matmul_a4_plain`."""
+    if x_packed.device.type == "cpu" and planes.device.type == "cpu":
+        return bitserial_matmul_a4_plain(
+            x_packed, planes, x_scale, w_scale, plane_mask, n_bits=n_bits,
+            out_dtype=out_dtype, signed=signed, block_k2=block_k2,
+            block_n=block_n)
+    M, N, K, K2, bk2, bn = _check_a4(x_packed, planes, w_scale, plane_mask,
+                                     n_bits, out_dtype, block_k2, block_n)
+    dev = x_packed.device
+    _prepare_launch([("x_packed", x_packed), ("planes", planes),
+                     ("w_scale", w_scale), ("plane_mask", plane_mask)],
+                    w_scale, plane_mask, dev)
+    if out_dtype == torch.float32 and w_scale is None:
+        w_scale = torch.ones(N, dtype=torch.float32, device=dev)
+    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if M == 0 or N == 0:
+        return out
+    lib = build("bitserial_gemm_a4")
+    nk, nn = -(-K2 // bk2), -(-N // bn)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.bitserial_gemm_a4(
+            x_packed.data_ptr(), int(signed), planes.data_ptr(),
+            plane_mask.data_ptr() if plane_mask is not None else None,
+            2 * bk2, bn, nk, nn,
+            w_scale.data_ptr() if w_scale is not None else None,
+            float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
+            M, N, K, K2, n_bits, int(signed), stream)
+    if err != 0:
+        raise KernelError(f"bitserial_gemm_a4 launch failed: cudaError_t "
+                          f"{err}")
+    bitserial_matmul_a4.launches += 1
+    return out
+
+
+bitserial_matmul_a4.launches = 0

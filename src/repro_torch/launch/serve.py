@@ -13,6 +13,7 @@ Usage:
     python -m repro_torch.launch.serve --neural-cache --requests 8
     python -m repro_torch.launch.serve --neural-cache --full --requests 4 --max-batch 2
     python -m repro_torch.launch.serve --neural-cache --device cpu --requests 2
+    python -m repro_torch.launch.serve --neural-cache --compressed --fault-profile seed=7,filter=0.05,stuck=3
 """
 from __future__ import annotations
 
@@ -82,13 +83,16 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
 
     The behaviour is the reference's: ``sparse`` plans against the deployed
     weights' detected zero filters, ``overlap`` plans §IV-E double
-    buffering, ``warmup_replan`` re-plans from the first batch's measured
-    occupancy, ``slo_ms`` arms the SLO-aware admission policy, and a batch
-    whose forward raises walks the recovery ladder (``_recover``); a
+    buffering, ``integrity`` plans ABFT verification of every pass (faults
+    injected under an active ``core.faults`` scope are detected and
+    re-executed inside the forward, logits byte-identical), ``compressed``
+    plans CSR bit-plane filter residency, ``warmup_replan`` re-plans from
+    the first batch's measured occupancy, ``slo_ms`` arms the SLO-aware
+    admission policy, and a batch whose forward raises walks the recovery
+    ladder (``_recover``); a
     :class:`~repro_torch.kernels.bitserial_matmul.KernelError` (a kernel that
     did not build or launch) is re-raised instead, never served degraded.
-    ``integrity`` and ``compressed`` are not part of this package yet and
-    raise.  The clock is injectable (``now_fn``, or ``now=`` on
+    The clock is injectable (``now_fn``, or ``now=`` on
     ``submit``/``step``).  Each request's ``logits`` is a tensor on the
     device."""
 
@@ -100,13 +104,6 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
                  hold_slack_ms: float | None = None, now_fn=time.monotonic,
                  name: str = "nc-engine",
                  device: str | torch.device | None = None):
-        if integrity:
-            raise NotImplementedError(
-                "integrity serving comes with the port's faults/integrity slice")
-        if compressed:
-            raise NotImplementedError(
-                "compressed residency comes with the port's CompressedPlanes "
-                "slice")
         super().__init__()
         self.device = resolve_device(device)
         self.name = name
@@ -124,12 +121,13 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
         self.occupancy = (inception.network_occupancy(self.wpack, self.config)
                           if sparse else None)
         self.overlap = overlap
-        self.integrity = False
-        self.compressed = False
+        self.integrity = integrity
+        self.compressed = compressed
         self.warmup_replan = warmup_replan
         self._warmup_pending = bool(warmup_replan)
         self.warmup_replans = 0
-        self.schedule = self._plan(max_batch, self.occupancy, self.overlap)
+        self.schedule = self._plan(max_batch, self.occupancy, self.overlap,
+                                   self.compressed)
         self._schedules = {max_batch: self.schedule}
         self._fallback_schedules: dict = {}
         self.retries = 0
@@ -150,19 +148,23 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
         self.slo_hits = 0
         self.slo_misses = 0
 
-    def _plan(self, n: int, occupancy, overlap: bool):
+    def _plan(self, n: int, occupancy, overlap: bool, compressed: bool):
         return nc_schedule.plan_network(self.specs, self.geom, batch=n,
-                                        occupancy=occupancy, overlap=overlap)
+                                        occupancy=occupancy, overlap=overlap,
+                                        integrity=self.integrity,
+                                        compressed=compressed)
 
     def _schedule_for(self, n: int):
         if n not in self._schedules:
-            self._schedules[n] = self._plan(n, self.occupancy, self.overlap)
+            self._schedules[n] = self._plan(n, self.occupancy, self.overlap,
+                                            self.compressed)
         return self._schedules[n]
 
     def _fallback_schedule_for(self, n: int):
-        """Degradation rung 2's plan: dense and serial."""
+        """Degradation rung 2's plan: dense, serial and uncompressed, keeping
+        any integrity checking the deployment asked for."""
         if n not in self._fallback_schedules:
-            self._fallback_schedules[n] = self._plan(n, None, False)
+            self._fallback_schedules[n] = self._plan(n, None, False, False)
         return self._fallback_schedules[n]
 
     def _replan_from_report(self, report) -> None:
@@ -355,22 +357,32 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
 
 
 def _main_neural_cache(args) -> int:
+    import contextlib
+
+    from repro_torch.core import faults
     from repro_torch.core.simulator import simulate_network, throughput
 
+    profile = (faults.FaultProfile.parse(args.fault_profile)
+               if args.fault_profile else None)
     device = resolve_device(args.device)
     cfg = inception.FULL if args.full else inception.reduced_config()
     params = inception.init_params(torch.Generator().manual_seed(args.seed),
                                    config=cfg, device=device)
     engine = NCServingEngine(params, cfg, max_batch=args.max_batch,
                              overlap=not args.no_overlap,
+                             integrity=profile is not None,
+                             compressed=args.compressed,
                              warmup_replan=args.warmup_replan,
                              slo_ms=args.slo_ms, device=device)
     rng = np.random.default_rng(args.seed)
     for r in range(args.requests):
         engine.submit(NCRequest(
             rid=r, image=rng.random((cfg.img, cfg.img, 3), dtype=np.float32)))
+    scope = (faults.inject(profile) if profile is not None
+             else contextlib.nullcontext())
     t0 = time.perf_counter()
-    done = engine.run()
+    with scope as fs:
+        done = engine.run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
@@ -382,11 +394,28 @@ def _main_neural_cache(args) -> int:
           f"{args.max_batch}, logits finite: {finite}); modeled: "
           f"{res.latency_s * 1e3:.3f} ms/img unbatched, {tp:.0f} inf/s at "
           f"batch {args.max_batch} (single socket)")
+    if args.compressed or args.warmup_replan:
+        s = engine.stats()
+        print(f"[serve-nc] compressed residency: "
+              f"{'on' if s['compressed'] else 'off'}, credit "
+              f"{s['residency_credit_bytes']} B/batch, stream limit "
+              f"{s['stream_batch_limit']}, warmup re-plans "
+              f"{s['warmup_replans']}")
     if args.slo_ms is not None:
         s = engine.stats()
         print(f"[serve-nc] SLO {args.slo_ms:.0f} ms: hit rate "
               f"{s['slo_hit_rate']:.0%}, admitted batches "
               f"{s['batch_histogram']}")
+    if profile is not None:
+        s = engine.stats()
+        fstats = fs.stats()
+        print(f"[serve-nc] faults (seed {fstats['seed']}): "
+              f"{fstats['injected']} injected, {fstats['detected']} "
+              f"detected / {fstats['corrupt_attempts']} corrupt passes, "
+              f"{fstats['reexecuted']} re-executed, quarantined slices "
+              f"{list(fstats['quarantined_slices'])}; serving: "
+              f"{s['retries']} batch retries, {s['degraded_batches']} "
+              f"degraded, {s['failed']} failed")
     return 0 if finite and len(done) == args.requests else 1
 
 
@@ -406,6 +435,13 @@ def main(argv=None) -> int:
     ap.add_argument("--max-batch", type=int, default=4)
     ap.add_argument("--no-overlap", action="store_true",
                     help="plan batches serial instead of double-buffered")
+    ap.add_argument("--compressed", action="store_true",
+                    help="plan batches with CSR bit-plane filter residency "
+                         "(logits byte-identical)")
+    ap.add_argument("--fault-profile", default=None,
+                    help="serve with ABFT integrity checking under seeded "
+                         "fault injection, e.g. "
+                         "seed=7,filter=0.05,act=0.01,compute=0.01,stuck=3")
     ap.add_argument("--warmup-replan", action="store_true",
                     help="re-plan from the first batch's measured occupancy")
     ap.add_argument("--slo-ms", type=float, default=None,

@@ -600,11 +600,14 @@ def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
     cycles += B * plan.quant_passes * _REQUANT_PASS_CYCLES
     live_out = max(int((yq[b] != int(out_qps[b].zero_point)).sum())
                    for b in range(B))
-    modeled = sim.modeled_layer_cycles(plan, geom, const)
+    # a quarantine re-plans mid-layer: price the plan the engine executed,
+    # plus the exact per-pass price of each fault re-execution
+    modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
     records.append(NCLayerReport(
         name=name, kind="conv", out_shape=tuple(yq.shape),
         emulated_cycles=int(cycles),
-        modeled_cycles=modeled["total_cycles"],
+        modeled_cycles=(modeled["total_cycles"]
+                        + stats.reexec_passes * modeled["reexec_pass_cycles"]),
         serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
         lanes=stats.lanes, zero_operand_lanes=stats.zero_operand_lanes,
         batch=B, minmax_cycles=int(c_mm), filter_loads=stats.filter_loads,
@@ -718,11 +721,12 @@ def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
     # two separate float32 operations, as the reference computes them
     logits = acc.to(torch.float32) * sxw[:, None]
     logits = logits + fc_bias[None, :]
-    modeled = sim.modeled_layer_cycles(plan, geom, const)
+    modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
     records.append(NCLayerReport(
         name="FullyConnected", kind="fc", out_shape=tuple(logits.shape),
         emulated_cycles=int(cycles),
-        modeled_cycles=modeled["total_cycles"],
+        modeled_cycles=(modeled["total_cycles"]
+                        + stats.reexec_passes * modeled["reexec_pass_cycles"]),
         serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
         lanes=stats.lanes, zero_operand_lanes=stats.zero_operand_lanes,
         batch=B, filter_loads=stats.filter_loads,
@@ -759,10 +763,14 @@ def nc_forward(params: dict, x,
 
     ``engine`` names a registered backend (core/backends.py);
     ``engine=None`` resolves as the schedule's ``backend`` pin >
-    ``NC_TORCH_BACKEND`` > ``gemm``.  ``schedule``, ``wpack``, ``sparse``
-    and ``overlap`` behave as in the reference (overlap plans execute
-    serially, with identical results).  ``integrity`` and ``compressed``
-    are not part of this package yet and raise.
+    ``NC_TORCH_BACKEND`` > ``gemm``.  ``schedule``, ``wpack``, ``sparse``,
+    ``overlap``, ``integrity`` and ``compressed`` behave as in the
+    reference (overlap plans execute serially, with identical results):
+    ``integrity=True`` plans ABFT checksum verification of every pass, with
+    re-execution, and stuck-slice quarantine under an active
+    ``core.faults`` scope; ``compressed=True`` plans CSR bit-plane filter
+    residency.  Logits stay byte-identical to the unchecked dense run.
+    The reference's ``stream_chunk`` is not part of this package yet.
 
     Returns ``(logits [B?, classes] float32 on the device, NCForwardReport)``
     equal to the reference's."""
@@ -774,14 +782,6 @@ def nc_forward(params: dict, x,
     if x4.ndim != 4:
         raise ValueError("nc_forward takes [H, W, 3] or [B, H, W, 3]")
     B = x4.shape[0]
-    if integrity or (schedule is not None and schedule.integrity):
-        raise NotImplementedError(
-            "ABFT integrity checking comes with the port's faults/integrity "
-            "slice")
-    if compressed or (schedule is not None and schedule.compressed):
-        raise NotImplementedError(
-            "compressed filter residency comes with the port's "
-            "CompressedPlanes slice")
     if (engine is not None and schedule is not None
             and schedule.backend not in (None, engine)):
         raise ValueError("pick the backend through the schedule "
@@ -792,6 +792,14 @@ def nc_forward(params: dict, x,
         raise ValueError("request overlap through the schedule "
                          "(plan_network(..., overlap=True)); overlap= with "
                          "an explicit schedule is ambiguous")
+    if schedule is not None and integrity:
+        raise ValueError("request integrity through the schedule "
+                         "(plan_network(..., integrity=True)); integrity= "
+                         "with an explicit schedule is ambiguous")
+    if schedule is not None and compressed:
+        raise ValueError("request compression through the schedule "
+                         "(plan_network(..., compressed=True)); compressed= "
+                         "with an explicit schedule is ambiguous")
     engine = _backends.resolve_backend(
         engine, schedule.backend if schedule is not None else None)
     specs_list = inception_v3_specs(config)
@@ -801,7 +809,9 @@ def nc_forward(params: dict, x,
     if schedule is None:
         occ = network_occupancy(wpack, config) if sparse else None
         schedule = sched.plan_network(specs_list, geom, batch=B,
-                                      occupancy=occ, overlap=overlap)
+                                      occupancy=occ, overlap=overlap,
+                                      integrity=integrity,
+                                      compressed=compressed)
     plans = {p.spec.name: p for p in schedule.layers}
     records: list[NCLayerReport] = []
     state = {"concat_requant_cycles": 0}

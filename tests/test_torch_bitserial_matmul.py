@@ -122,9 +122,11 @@ def test_failed_build_raises_kernel_error(tmp_path, monkeypatch):
     nvcc.chmod(0o755)
     monkeypatch.setattr(tk.shutil, "which", lambda name: str(nvcc))
     monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(tk, "_LIB", None)
+    monkeypatch.setattr(tk, "_LIBS", {})
     with pytest.raises(tk.KernelError, match="injected"):
         tk.build()
+    with pytest.raises(tk.KernelError, match="bitserial_gemm_a4: nvcc"):
+        tk.build("bitserial_gemm_a4")
     assert not list((tmp_path / "build").glob("*.so"))
 
 

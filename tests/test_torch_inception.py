@@ -6,7 +6,9 @@ every ``NCLayerReport`` equal, at batch 1 and 2.  The float ``apply`` is
 compared with a stated tolerance: both run float32 convolutions, whose sums
 are taken in different orders (atol 1e-4 on logits of magnitude ~1).
 """
+import ast
 import dataclasses
+import pathlib
 import subprocess
 import sys
 
@@ -15,9 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import faults as rfaults
 from repro.core import schedule as rsched
 from repro.models import inception as ri
+from repro_torch.core import faults as tfaults
 from repro_torch.core import schedule as tsched
+from repro_torch.core.cache_geometry import XEON_E5_35MB as TGEOM
 from repro_torch.models import inception as ti
 
 torch.set_num_threads(1)
@@ -86,6 +91,31 @@ def test_nc_forward_pruned_schedule(tiny):
     _same_forward(want, got)
 
 
+FAULTS = "seed=2,filter=0.4,act=0.2,compute=0.4,stuck=3"
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_nc_forward_integrity_compressed_under_faults(tiny, overlap):
+    """A checked, compressed batch-2 forward under an active fault profile:
+    logits and every layer report equal the reference's, the fault ledgers
+    are equal event for event, nothing corrupt went undetected, and the
+    logits equal the clean unchecked run's."""
+    rc, tc, rparams, tparams = tiny
+    x = np.random.default_rng(8).random((2, rc.img, rc.img, 3),
+                                        dtype=np.float32)
+    kw = dict(integrity=True, compressed=True, overlap=overlap)
+    with rfaults.inject(rfaults.FaultProfile.parse(FAULTS)) as rfs:
+        want = ri.nc_forward(rparams, x, config=rc, engine="jit", **kw)
+    with tfaults.inject(tfaults.FaultProfile.parse(FAULTS)) as tfs:
+        got = ti.nc_forward(tparams, x, config=tc, device="cpu", **kw)
+    _same_forward(want, got)
+    assert rfs.stats() == tfs.stats() and rfs.events == tfs.events
+    assert tfs.detected == tfs.corrupt_attempts > 0
+    assert sum(r.reexec_passes for r in got[1].layers) == tfs.reexecuted
+    clean, _ = ti.nc_forward(tparams, x, config=tc, device="cpu")
+    assert torch.equal(clean.view(torch.int32), got[0].view(torch.int32))
+
+
 def test_weights_and_occupancy_equal(tiny):
     rc, tc, rparams, tparams = tiny
     r_wpack = ri.prepare_conv_weights(rparams, rc)
@@ -139,12 +169,37 @@ def test_cuda_without_gpu_raises():
 
 
 def test_unported_options_raise(tiny):
+    """``stream_chunk`` is not ported yet; integrity and compression beside
+    an explicit schedule are ambiguous, as in the reference."""
     rc, tc, _, tparams = tiny
     x = np.zeros((tc.img, tc.img, 3), np.float32)
-    with pytest.raises(NotImplementedError):
-        ti.nc_forward(tparams, x, config=tc, integrity=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ti.nc_forward(tparams, x, config=tc, compressed=True, device="cpu")
+    with pytest.raises(TypeError, match="stream_chunk"):
+        ti.nc_forward(tparams, x, config=tc, stream_chunk=1, device="cpu")
+    net = tsched.plan_network(ti.inception_v3_specs(tc), TGEOM, batch=1)
+    for flag in ("integrity", "compressed"):
+        with pytest.raises(ValueError, match="schedule"):
+            ti.nc_forward(tparams, x, config=tc, schedule=net, device="cpu",
+                          **{flag: True})
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    """Parsed, not imported: no module of the port and not
+    ``chip_smoke.py`` names ``jax``, ``jaxlib`` or ``repro`` in an import."""
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "src" / "repro_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            bad += [f"{path.name}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert len(files) > 15 and not bad, bad
 
 
 def test_port_imports_neither_jax_nor_repro():

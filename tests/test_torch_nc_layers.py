@@ -131,13 +131,20 @@ def test_conv_float_inputs_per_image_qparams_and_overlap():
 
 
 def test_conv_unported_plan_flags_raise():
+    """Integrity and compression are ported: requested beside an explicit
+    plan they raise as the reference does (the plan already decided)."""
     x = torch.zeros((1, 4, 4, 2), dtype=torch.uint8)
     w = torch.zeros((1, 1, 2, 2), dtype=torch.uint8)
     qp = tq.QuantParams(scale=1.0, zero_point=0)
-    with pytest.raises(NotImplementedError, match="integrity"):
-        tnc.nc_conv2d(x, w, qp, qp, integrity=True)
-    with pytest.raises(NotImplementedError, match="CompressedPlanes"):
-        tnc.nc_conv2d(x, w, qp, qp, compressed=True)
+    spec = tsched.LayerSpec(name="c", kind="conv", H=4, R=1, S=1, C=2, M=2,
+                            E=4)
+    plan = tsched.plan_layer(spec, TGEOM, batch=1)
+    with pytest.raises(ValueError, match="integrity"):
+        tnc.nc_conv2d(x, w, qp, qp, plan=plan, integrity=True)
+    with pytest.raises(ValueError, match="compression"):
+        tnc.nc_conv2d(x, w, qp, qp, plan=plan, compressed=True)
+    out, _ = tnc.nc_conv2d(x, w, qp, qp, integrity=True, compressed=True)
+    assert out.shape == (1, 4, 4, 2)
 
 
 @pytest.mark.parametrize("window,stride,padding", [(3, 2, "VALID"),

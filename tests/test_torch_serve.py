@@ -6,8 +6,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import faults as rfaults
 from repro.launch import serve as rserve
 from repro.models import inception as ri
+from repro_torch.core import faults as tfaults
+from repro_torch.core import nc_layers as tnc
+from repro_torch.core import quantize as tq
 from repro_torch.kernels import bitserial_matmul as tk
 from repro_torch.launch import serve as tserve
 from repro_torch.models import inception as ti
@@ -103,6 +107,65 @@ def test_kernel_error_is_not_served_degraded(tiny, first_ok):
     assert not port.completed and port.degraded_batches == 0
 
 
+def test_checked_serving_under_faults_matches_reference(tiny):
+    """An integrity-armed, compressed engine under aggressive injection
+    strands no request, matches the reference engine's steps, stats and
+    fault ledger, and serves logits byte-identical to clean standalone
+    forwards."""
+    rc, tc, rparams, tparams, images = tiny
+    spec = "seed=3,filter=1,act=0.5,compute=1,stuck=3"
+    ref = rserve.NCServingEngine(rparams, rc, max_batch=2, engine="jit",
+                                 integrity=True, compressed=True)
+    port = tserve.NCServingEngine(tparams, tc, max_batch=2, integrity=True,
+                                  compressed=True, device="cpu")
+    with rfaults.inject(rfaults.FaultProfile.parse(spec)) as rfs:
+        r_done = _drive(ref, images[:3], rserve.NCRequest)
+    with tfaults.inject(tfaults.FaultProfile.parse(spec)) as tfs:
+        t_done = _drive(port, images[:3], tserve.NCRequest)
+    assert len(t_done) == 3 and not port.failed and not port.queue
+    assert rfs.stats() == tfs.stats() and rfs.events == tfs.events
+    assert tfs.detected == tfs.corrupt_attempts > 0
+    r_stats, t_stats = ref.stats(), port.stats()
+    for key in ("steps", "completed", "batch_histogram", "integrity",
+                "compressed", "residency_credit_bytes", "failed", "retries",
+                "degraded_batches", "stream_batch_limit"):
+        assert r_stats[key] == t_stats[key], key
+    for r, t in zip(r_done, t_done):
+        assert t.degraded is None
+        assert (np.asarray(r.logits).view(np.uint32)
+                == t.logits.numpy().view(np.uint32)).all()
+        alone, _ = ti.nc_forward(tparams, images[t.rid], config=tc,
+                                 device="cpu")
+        assert torch.equal(alone.view(torch.int32), t.logits.view(torch.int32))
+
+
+def test_a4_kernel_error_fails_loudly(tiny, monkeypatch):
+    """A W4A4 kernel that fails raises ``KernelError`` out of a 4-bit layer
+    and out of the serving engine; it never reaches the float rung."""
+    rc, tc, _, tparams, images = tiny
+
+    def broken(*args, **kwargs):
+        raise tk.KernelError("bitserial_gemm_a4 launch failed: cudaError_t 98")
+
+    monkeypatch.setattr(tk, "bitserial_matmul_a4", broken)
+    qp = tq.QuantParams(scale=1 / 16, zero_point=1, bits=4)
+    x = torch.randint(0, 16, (1, 6, 6, 4), dtype=torch.uint8)
+    w = torch.randint(0, 16, (3, 3, 4, 5), dtype=torch.uint8)
+
+    def four_bit_forward(xb, schedule):
+        tnc.nc_conv2d(x, w, qp, qp, engine="gemm")
+        raise AssertionError("the a4 route did not run")
+
+    with pytest.raises(tk.KernelError, match="cudaError_t 98"):
+        tnc.nc_conv2d(x, w, qp, qp, engine="gemm")
+    port = tserve.NCServingEngine(tparams, tc, max_batch=1, device="cpu")
+    port._forward = four_bit_forward
+    port.submit(tserve.NCRequest(rid=0, image=images[0]))
+    with pytest.raises(tk.KernelError, match="cudaError_t 98"):
+        port.run()
+    assert not port.completed and port.degraded_batches == 0
+
+
 def test_warmup_replan_keeps_logits(tiny):
     rc, tc, _, tparams, images = tiny
     port = tserve.NCServingEngine(tparams, tc, max_batch=2,
@@ -120,10 +183,12 @@ def test_engine_device_and_unported_flags(tiny):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             tserve.NCServingEngine(tparams, tc)
-    with pytest.raises(NotImplementedError):
-        tserve.NCServingEngine(tparams, tc, integrity=True, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tserve.NCServingEngine(tparams, tc, compressed=True, device="cpu")
+    checked = tserve.NCServingEngine(tparams, tc, integrity=True,
+                                     compressed=True, device="cpu")
+    assert checked.schedule.integrity and checked.schedule.compressed
+    fallback = checked._fallback_schedule_for(1)
+    assert fallback.integrity and not fallback.compressed
+    assert checked.stats()["integrity"] and checked.stats()["compressed"]
     with pytest.raises(ValueError, match="gemm, walk"):
         tserve.NCServingEngine(tparams, tc, engine="host", device="cpu")
     port = tserve.NCServingEngine(tparams, tc, device="cpu")
@@ -136,3 +201,12 @@ def test_cli_serves_on_cpu(capsys):
     assert tserve.main(["--neural-cache", "--device", "cpu", "--requests",
                         "1", "--max-batch", "1"]) == 0
     assert "logits finite: True" in capsys.readouterr().out
+
+
+def test_cli_compressed_under_faults(capsys):
+    assert tserve.main(["--neural-cache", "--device", "cpu", "--requests",
+                        "2", "--max-batch", "2", "--compressed",
+                        "--fault-profile", "seed=7,filter=0.05,stuck=3"]) == 0
+    out = capsys.readouterr().out
+    assert "compressed residency: on" in out
+    assert "[serve-nc] faults (seed 7)" in out and "0 failed" in out
