@@ -2,18 +2,24 @@
 
     python3 chip_smoke.py    # needs one CUDA GPU
 
-Phases (any failure exits non-zero; results go to lines before the last):
+Phases (any failure exits non-zero; no phase catches its own failure;
+results go to lines before the last; each phase prints its wall):
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: compile ``src/repro_torch/csrc/bitserial_gemm.cu`` and
-   ``bitserial_gemm_a4.cu`` with nvcc, one process per source, in parallel;
+2. build: compile the four kernels of ``src/repro_torch/csrc/``
+   (``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``, ``quant_gemm.cu``,
+   ``flash_attention.cu``) with nvcc, one process per source, in parallel,
+   and print each one's registers and spills;
 3. each kernel against its plain torch version on the card: the 8-bit
-   kernel at random ragged shapes (n_bits 1..8, signed and unsigned planes,
-   with and without the occupancy mask, int32 and float32 epilogues) and at
-   the full-width main path's shapes; the W4A4 kernel at random ragged
-   shapes (n_bits 1..4, odd and even K, signed and unsigned, masked or not,
-   both epilogues) and at the full-width 4-bit shapes.  Bit-equal: both
-   compute ``(f32(acc) * x_scale) * w_scale`` in that order;
+   bit-serial kernel at random ragged shapes (n_bits 1..8, signed and
+   unsigned planes, with and without the occupancy mask, int32 and float32
+   epilogues) and at the full-width Inception shapes; the W4A4 kernel at
+   random ragged shapes (n_bits 1..4, odd and even K, signed and unsigned,
+   masked or not, both epilogues) and at the full-width 4-bit shapes; the
+   W8A8 ``quant_matmul`` kernel at random ragged shapes (bias or none) and
+   at the LM's linear shapes; all three bit-equal.  ``flash_attention`` at
+   random ragged (B, H, Hkv, Tq, Tk, D), causal and not, float32 (rtol =
+   atol = 1e-5) and bfloat16 (2e-2), and at the served shapes;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
@@ -33,13 +39,32 @@ Phases (any failure exits non-zero; results go to lines before the last):
    and the wall time;
 7. one batch-2 full-width forward with the kernel and one with the plain
    version: logits and every layer report byte-identical; the correlation
-   with the float forward is printed for information;
-8. times on the card: each kernel, its plain version and one
-   ``torch.matmul`` on float64 copies of the (unpacked) operands at its
-   shapes; the full-width forward and its split into pack / dot / min-max
-   tree / requant;
-9. one JSON line listing the kernels, then the card line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+   with the float forward is printed for information; then the forward's
+   split into pack / dot / min-max tree / requant;
+8. full-width Qwen2-7B (28 layers, d_model 3584, 28 query heads over 4 KV
+   heads, bf16, seeded random weights) served by ``ServingEngine(
+   max_batch=4, max_len=2112)``: 4 requests with prompts of 37, 512, 1000
+   and 2048 tokens, 16 new tokens each; none failed, 28 x 4 = 112
+   flash-attention launches, each request's prefill logits bit-equal to a
+   standalone ``prefill``, its tokens equal to a standalone batch-1
+   ``prefill`` + ``decode_step`` loop at least up to the first token whose
+   standalone top-2 logit margin is below 0.25; prints the prefill wall,
+   decode tokens/s and peak device memory;
+9. full-width post-training quantization: ``CalibrationStats`` over every
+   linear site's input from the float prefills of the served prompts,
+   ``quantize_lm_params``, then W8A8 ``QuantizedLinear`` at all 28 x 7
+   layer linears on the 512-token prompt's captured inputs plus the head
+   on the prompts' last positions (at least 197 quant_matmul launches), each
+   bit-equal to the plain version, with the mean relative error against the
+   bf16 product per site class; layer 0 at 4 bits through
+   ``bitserial_linear`` (the bit-serial kernel with signed planes);
+10. times on the card (CUDA events): each kernel, its plain version and one
+    PyTorch call at its shapes (``torch.matmul`` on float64 copies for the
+    bit-serial kernels, ``torch._int_mm`` plus the epilogue for
+    quant_matmul, ``scaled_dot_product_attention`` on KV repeated to H
+    heads for flash_attention), beside the bound;
+11. one JSON line listing the four kernels, then the card line, then
+    ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
@@ -559,9 +584,455 @@ def phase_times_a4(bsm, dev):
     return rows
 
 
+# the LM slice's kernel shapes (qwen2-7b, a 512-token prompt): every
+# per-layer linear (M, K, N) and the attention of 512- and 2048-token
+# prompts (B, H, Hkv, T, D)
+QM_SHAPES = [("wq/wo", 512, 3584, 3584), ("wk/wv", 512, 3584, 512),
+             ("wi/wg", 512, 3584, 18944), ("mlp wo", 512, 18944, 3584)]
+FA_SHAPES = [("T512", 1, 28, 4, 512, 128), ("T2048", 1, 28, 4, 2048, 128)]
+H100_BF16_FLOPS_S = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
+FA_F32_TOL = 1e-5  # kernel vs plain, float32: rtol = atol
+FA_BF16_TOL = 2e-2  # bfloat16 outputs (tests/test_kernels_flash.py's 2e-2)
+
+
+def _int8(g, shape, dev):
+    return torch.randint(-128, 128, shape, generator=g,
+                         dtype=torch.int64).to(torch.int8).to(dev)
+
+
+def phase_quant_kernel(qm, dev) -> float:
+    """``quant_matmul`` against its plain version at random ragged shapes
+    (K not a multiple of 4 included, bias or none) and at QM_SHAPES:
+    bit-equal, since both round each epilogue step in the same order."""
+    g = torch.Generator().manual_seed(6)
+    cases = [(1, 1, 1), (7, 33, 5), (65, 31, 129), (130, 257, 67),
+             (64, 64, 64), (3, 600, 200), (257, 1000, 130), (100, 522, 300),
+             (513, 3584, 77)]
+    cases += [(M, K, N) for _, M, K, N in QM_SHAPES]
+    n = 0
+    for M, K, N in cases:
+        x, w = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
+        ws = (torch.rand(N, generator=g) * 0.01 + 1e-4).to(dev)
+        bias = torch.randn(N, generator=g).to(dev)
+        for b in (None, bias):
+            got = qm.quant_matmul(x, w, 0.0123, ws, b)
+            want = qm.quant_matmul_plain(x, w, 0.0123, ws, b)
+            torch.cuda.synchronize()
+            if not bits_equal(got, want):
+                diff = (got.double() - want.double()).abs().max().item()
+                raise AssertionError(f"quant_matmul != plain at M,K,N="
+                                     f"{M, K, N} bias={b is not None}: max "
+                                     f"diff {diff}")
+            n += 1
+    log(f"[kernel-qm] {n} cases (random ragged and the slice's shapes) "
+        f"bit-equal to the plain version")
+    return 0.0
+
+
+def phase_flash_kernel(fa, dev) -> tuple[float, float]:
+    """``flash_attention`` against its plain version at random ragged
+    (B, H, Hkv, Tq, Tk, D), causal and not, float32 and bfloat16, and at
+    FA_SHAPES; returns the largest absolute differences (f32, bf16)."""
+    g = torch.Generator().manual_seed(7)
+    cases = [(1, 1, 1, 1, 1, 16), (2, 4, 4, 37, 37, 32), (1, 8, 2, 100, 130, 64),
+             (2, 6, 3, 65, 64, 128), (1, 28, 4, 129, 129, 128),
+             (3, 4, 1, 64, 200, 64), (1, 2, 2, 300, 100, 16)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for B, H, Hkv, Tq, Tk, D in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, H, Tq, D), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, Hkv, Tk, D), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, Hkv, Tk, D), generator=g).to(dtype).to(dev)
+            for causal in (True, False):
+                _flash_compare(fa, q, k, v, causal, worst,
+                               f"{B, H, Hkv, Tq, Tk, D} {dtype} causal="
+                               f"{causal}")
+                n += 1
+    for name, B, H, Hkv, T, D in FA_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, H, T, D), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, Hkv, T, D), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, Hkv, T, D), generator=g).to(dtype).to(dev)
+            _flash_compare(fa, q, k, v, True, worst, f"{name} {dtype}")
+            n += 1
+    log(f"[kernel-fa] {n} cases within tolerance of the plain version "
+        f"(f32 rtol=atol={FA_F32_TOL}: max abs diff "
+        f"{worst[torch.float32]:.3g}; bf16 rtol=atol={FA_BF16_TOL}: max "
+        f"abs diff {worst[torch.bfloat16]:.3g})")
+    return worst[torch.float32], worst[torch.bfloat16]
+
+
+def _flash_compare(fa, q, k, v, causal, worst, what):
+    got = fa.flash_attention(q, k, v, causal=causal)
+    want = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FA_F32_TOL if q.dtype == torch.float32 else FA_BF16_TOL
+    diff = (got.double() - want.double()).abs()
+    if got.dtype != q.dtype or got.shape != q.shape or not bool(
+            (diff <= tol + tol * want.double().abs()).all()):
+        raise AssertionError(f"flash_attention != plain at {what}: max diff "
+                             f"{diff.max().item()}")
+    worst[q.dtype] = max(worst[q.dtype], diff.max().item())
+
+
+def _bound(nbytes: float, ops: float, peak: float) -> dict:
+    bytes_ms = nbytes / H100_HBM_BYTES_S * 1e3
+    ops_ms = ops / peak * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes_ms=bytes_ms,
+                ops_ms=ops_ms)
+
+
+def phase_times_quant(qm, dev):
+    """``quant_matmul`` at QM_SHAPES (no bias, as the PTQ linears call it):
+    kernel, plain version, and ``torch._int_mm`` plus the same epilogue."""
+    g = torch.Generator().manual_seed(8)
+    rows = []
+    for name, M, K, N in QM_SHAPES:
+        x, w = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
+        ws = (torch.rand(N, generator=g) * 0.01 + 1e-4).to(dev)
+        xs = torch.tensor(0.0123, dtype=torch.float32, device=dev)
+        ms = cuda_ms(lambda: qm.quant_matmul(x, w, 0.0123, ws))
+        plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, w, 0.0123, ws),
+                           reps=3, warmup=1)
+
+        def library():
+            return torch._int_mm(x, w).to(torch.float32) * xs * ws[None, :]
+        lib_ms = cuda_ms(library)
+        if not bits_equal(library(), qm.quant_matmul(x, w, 0.0123, ws)):
+            raise AssertionError(f"torch._int_mm yardstick disagrees at {name}")
+        b = _bound(M * K + K * N + 4 * N + 4 * M * N, 2 * M * N * K,
+                   H100_INT8_OPS_S)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b))
+        log(f"[time-qm] {name} {M}x{K}x{N}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, torch._int_mm + epilogue {lib_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.5f} ms ("
+            f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
+    return rows
+
+
+def phase_times_flash(fa, dev):
+    """``flash_attention`` at FA_SHAPES in bfloat16, causal: kernel, plain
+    version, and ``F.scaled_dot_product_attention(is_causal=True)`` on KV
+    repeated to H heads."""
+    g = torch.Generator().manual_seed(9)
+    rows = []
+    for name, B, H, Hkv, T, D in FA_SHAPES:
+        q = torch.randn((B, H, T, D), generator=g).to(torch.bfloat16).to(dev)
+        k = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
+        v = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
+                           reps=3, warmup=1)
+        kr = k.repeat_interleave(H // Hkv, dim=1)
+        vr = v.repeat_interleave(H // Hkv, dim=1)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = cuda_ms(lambda: sdpa(q, kr, vr, is_causal=True))
+        lib_diff = (sdpa(q, kr, vr, is_causal=True).double()
+                    - fa.flash_attention(q, k, v).double()).abs().max().item()
+        if lib_diff > FA_BF16_TOL * 4:
+            raise AssertionError(f"SDPA yardstick disagrees at {name}: "
+                                 f"{lib_diff}")
+        pairs = T * (T + 1) // 2  # (query, key) pairs under the causal mask
+        b = _bound(2 * (2 * B * H * T * D + 2 * B * Hkv * T * D),
+                   4 * B * H * D * pairs, H100_BF16_FLOPS_S)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b))
+        log(f"[time-fa] {name} (B,H,Hkv,T,D)={B, H, Hkv, T, D} bf16 causal: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+            f"ms (max diff to the kernel {lib_diff:.3g}), bound "
+            f"{b['bound_ms']:.5f} ms ("
+            f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
+    return rows
+
+
+LM_ARCH = "qwen2-7b"
+LM_PROMPTS = (37, 512, 1000, 2048)  # ragged, mixed prompt lengths
+LM_NEW_TOKENS = 16
+LM_MAX_LEN = 2112
+LM_CALIB_PROMPT = 512  # the prompt whose captured inputs feed the W8A8 linears
+# a standalone decode step's top-2 logit margin under which batch-4 and
+# batch-1 bf16 decodes may pick different tokens: eight bf16 steps at the
+# top logits' magnitude (about 4, where a bf16 step is 2^-5)
+LM_MARGIN_TOL = 0.25
+
+
+def _lm_prompts(vocab: int):
+    rng = np.random.default_rng(0)
+    return [rng.integers(2, vocab, n).astype(np.int32) for n in LM_PROMPTS]
+
+
+def _top2_margin(logits: torch.Tensor) -> float:
+    top = torch.topk(logits.float(), 2).values
+    return float(top[0] - top[1])
+
+
+def phase_lm_serve(transformer, serve, fa, cfg, params, prompts, dev):
+    """Full-width LM serving: 4 ragged prompts through ``ServingEngine``;
+    every prefill's attention through the flash-attention kernel.  Checks
+    the prefill logits bit-equal to standalone prefills and the decode
+    tokens against a standalone batch-1 loop; returns the launch count,
+    the prefill logits kept per prompt and the last-position hidden states
+    (for the PTQ phase)."""
+    engine = serve.ServingEngine(cfg, params, max_batch=4,
+                                 max_len=LM_MAX_LEN, device=dev)
+    served_prefill, decode_logits = {}, []
+    walls = {"prefill": 0.0}
+    real_prefill, real_decode = transformer.prefill, transformer.decode_step
+
+    def prefill(c, p, toks, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = real_prefill(c, p, toks, **kw)
+        torch.cuda.synchronize()
+        walls["prefill"] += time.perf_counter() - t
+        served_prefill[toks.shape[1]] = out[0][0].clone()
+        return out
+
+    def decode_step(*a, **k):
+        out = real_decode(*a, **k)
+        decode_logits.append(out[0].clone())
+        return out
+
+    for i, p in enumerate(prompts):
+        engine.submit(serve.Request(rid=i, prompt=p, max_tokens=LM_NEW_TOKENS))
+    transformer.prefill, transformer.decode_step = prefill, decode_step
+    fa.flash_attention.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        done = engine.run()
+        torch.cuda.synchronize()
+    finally:
+        transformer.prefill, transformer.decode_step = real_prefill, real_decode
+    wall = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_tokens = sum(len(r.out) for r in done)
+    decode_wall = wall - walls["prefill"]
+    log(f"[lm-serve] {cfg.name} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, "
+        f"seeded random weights): {len(done)} requests, prompts "
+        f"{list(LM_PROMPTS)}, {n_tokens} tokens in {wall:.3f} s; prefill "
+        f"wall {walls['prefill']:.3f} s ({sum(LM_PROMPTS)} prompt tokens), "
+        f"decode {decode_wall:.3f} s for {n_tokens - len(done)} tokens in "
+        f"{engine.steps} steps ({(n_tokens - len(done)) / decode_wall:.1f} "
+        f"tok/s); peak device memory {peak / 2**30:.2f} GiB; "
+        f"flash_attention launches {launches}")
+    if len(done) != len(prompts) or engine.failed:
+        raise AssertionError(f"served {len(done)} of {len(prompts)}: "
+                             f"{engine.errors}")
+    if any(len(r.out) != LM_NEW_TOKENS for r in done):
+        raise AssertionError(f"token counts {[len(r.out) for r in done]}, "
+                             f"want {LM_NEW_TOKENS} each")
+    if launches != cfg.n_layers * len(prompts):
+        raise AssertionError(f"flash_attention launched {launches} times, "
+                             f"want {cfg.n_layers * len(prompts)}")
+    agree_total, worst_diff = 0, 0.0
+    for r in sorted(done, key=lambda r: r.rid):
+        toks = torch.as_tensor(prompts[r.rid], device=dev)[None]
+        logits, caches = transformer.prefill(cfg, params, toks,
+                                             max_len=LM_MAX_LEN)
+        if not bits_equal(served_prefill[toks.shape[1]], logits[0]):
+            raise AssertionError(f"request {r.rid}: served prefill logits "
+                                 f"differ from a standalone prefill")
+        alone, margins, step_logits = [], [], [logits[0]]
+        pos = toks.shape[1]
+        while True:
+            margins.append(_top2_margin(step_logits[-1]))
+            alone.append(int(torch.argmax(step_logits[-1])))
+            if len(alone) == LM_NEW_TOKENS:
+                break
+            nxt = torch.tensor([[alone[-1]]], dtype=torch.int32, device=dev)
+            lg, caches = transformer.decode_step(cfg, params, nxt, caches, pos)
+            step_logits.append(lg[0])
+            pos += 1
+        near = next((t for t, m in enumerate(margins) if m < LM_MARGIN_TOL),
+                    LM_NEW_TOKENS)
+        agree = next((t for t in range(LM_NEW_TOKENS)
+                      if r.out[t] != alone[t]), LM_NEW_TOKENS)
+        for t in range(1, agree):  # same inputs so far: compare the logits
+            worst_diff = max(worst_diff, (decode_logits[t - 1][r.rid].float()
+                                          - step_logits[t].float()).abs()
+                             .max().item())
+        agree_total += sum(a == b for a, b in zip(r.out, alone))
+        log(f"[lm-serve] request {r.rid} (prompt {len(prompts[r.rid])}): "
+            f"prefill logits bit-equal to standalone; tokens agree with the "
+            f"standalone batch-1 loop for the first {agree} of "
+            f"{LM_NEW_TOKENS}; first standalone top-2 margin below "
+            f"{LM_MARGIN_TOL} at token {near} (margins "
+            f"{[round(m, 4) for m in margins]})")
+        if agree < near:
+            raise AssertionError(f"request {r.rid}: served token {agree} "
+                                 f"differs from the standalone loop before "
+                                 f"any near-tie (first at {near})")
+    log(f"[lm-serve] {agree_total} of {LM_NEW_TOKENS * len(prompts)} tokens "
+        f"agree with the standalone loop; largest served-vs-standalone logit "
+        f"difference while the tokens agree {worst_diff:.4g}")
+    return launches, wall
+
+
+def _capture_sites(layers, transformer, sink):
+    """Wrap the layer functions so that each linear site's input of every
+    layer lands in ``sink[name]`` during a forward: ``attn_in`` (the input
+    of wq/wk/wv), ``attn_out`` (of the attention wo), ``mlp_in`` (of wi/wg),
+    ``mlp_hidden`` (of the MLP wo) and ``head_in`` (the last position's
+    final hidden state).  Returns a function that undoes the wrapping."""
+    saved = {(layers, "attention_apply"): layers.attention_apply,
+             (layers, "flash_attention"): layers.flash_attention,
+             (layers, "mlp_apply"): layers.mlp_apply,
+             (transformer, "lm_logits"): transformer.lm_logits}
+    state = {"layer": -1}
+
+    def attention_apply(cfg, p, x, *a, **k):
+        state["layer"] += 1
+        sink[f"layer{state['layer']}/attn_in"] = x
+        return saved[(layers, "attention_apply")](cfg, p, x, *a, **k)
+
+    def flash_attention(q, *a, **k):
+        out = saved[(layers, "flash_attention")](q, *a, **k)
+        B, H, T, D = out.shape
+        sink[f"layer{state['layer']}/attn_out"] = (
+            out.transpose(1, 2).reshape(B, T, H * D))
+        return out
+
+    def mlp_apply(cfg, p, x):
+        sink[f"layer{state['layer']}/mlp_in"] = x
+        sink[f"layer{state['layer']}/mlp_hidden"] = (
+            torch.nn.functional.silu(x @ p["wg"]) * (x @ p["wi"]))
+        return saved[(layers, "mlp_apply")](cfg, p, x)
+
+    def lm_logits(cfg, params, hidden):
+        sink["head_in"] = hidden
+        state["layer"] = -1
+        return saved[(transformer, "lm_logits")](cfg, params, hidden)
+
+    for (mod, name), fn in zip(saved, (attention_apply, flash_attention,
+                                       mlp_apply, lm_logits)):
+        setattr(mod, name, fn)
+
+    def restore():
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return restore
+
+
+# the per-layer linears: (site class, input site, parameter path)
+LM_LINEARS = [("attn qkv", "attn_in", ("attn", "wq")),
+              ("attn qkv", "attn_in", ("attn", "wk")),
+              ("attn qkv", "attn_in", ("attn", "wv")),
+              ("attn wo", "attn_out", ("attn", "wo")),
+              ("mlp wi/wg", "mlp_in", ("mlp", "wi")),
+              ("mlp wi/wg", "mlp_in", ("mlp", "wg")),
+              ("mlp wo", "mlp_hidden", ("mlp", "wo"))]
+
+
+def phase_lm_ptq(transformer, layers, ptq, ops, qm, bsm, cfg, params,
+                 prompts, dev):
+    """Full-width post-training quantization: calibrate every linear
+    site's input over the float prefills of the served prompts, quantize
+    the weights, and run every layer's linears (plus the head on the last
+    positions) as W8A8 ``QuantizedLinear``s through the quant_matmul kernel,
+    each bit-equal to the plain version; then one layer's linears at 4 bits
+    through ``bitserial_linear``.  Returns the kernel's launch count."""
+    sink, kept, heads = {}, {}, []
+
+    def observe_sites(stats, toks, out):
+        for name, x in sink.items():
+            stats.observe(name, x)
+        if toks.shape[1] == LM_CALIB_PROMPT:
+            kept.update(sink)
+        heads.append(sink["head_in"])
+        sink.clear()
+
+    restore = _capture_sites(layers, transformer, sink)
+    t0 = time.perf_counter()
+    try:
+        stats = ptq.calibrate(
+            lambda toks: transformer.prefill(cfg, params, toks),
+            [torch.as_tensor(p, device=dev)[None] for p in prompts],
+            ptq.CalibrationStats(), observe_sites)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    t_cal = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    qparams = ptq.quantize_lm_params(params)
+    torch.cuda.synchronize()
+    t_quant = time.perf_counter() - t0
+    log(f"[lm-ptq] calibrated {len(stats.mins)} sites over {len(prompts)} "
+        f"float prefills in {t_cal:.2f} s; quantize_lm_params (int8, "
+        f"per-channel) in {t_quant:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    stage, qstage = params["stages"][0], qparams["stages"][0]
+    calls = []  # (class, x, wq, x_qp, float weight)
+    for lay in range(cfg.n_layers):
+        for cls, site, (blk, name) in LM_LINEARS:
+            leaf = qstage[blk][name]
+            wq = {"q": leaf["q"][lay], "scale": leaf["scale"].reshape(-1)}
+            name_in = f"layer{lay}/{site}"
+            calls.append((cls, kept[name_in], wq, stats.qparams(name_in),
+                          stage[blk][name][lay]))
+    calls.append(("head", torch.cat(heads), qparams["head"],
+                  stats.qparams("head_in"), params["head"]))
+    qm.quant_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [ptq.QuantizedLinear(wq, qp)(x) for _, x, wq, qp, _ in calls]
+    torch.cuda.synchronize()
+    t_w8a8 = time.perf_counter() - t0
+    launches = qm.quant_matmul.launches
+    log(f"[lm-ptq] {len(calls)} W8A8 QuantizedLinears ({cfg.n_layers} layers "
+        f"x {len(LM_LINEARS)} linears on the {LM_CALIB_PROMPT}-token prompt's "
+        f"inputs, plus the "
+        f"head on the {len(heads)} prompts' last positions) in {t_w8a8:.3f} "
+        f"s; quant_matmul launches {launches}")
+    if launches < len(calls):
+        raise AssertionError(f"quant_matmul launched {launches} times for "
+                             f"{len(calls)} linears")
+    real = ops.quant_matmul
+    ops.quant_matmul = qm.quant_matmul_plain
+    try:
+        plain = [ptq.QuantizedLinear(wq, qp)(x) for _, x, wq, qp, _ in calls]
+    finally:
+        ops.quant_matmul = real
+    errs: dict[str, list] = {}
+    for (cls, x, _, _, w), y, yp in zip(calls, outs, plain):
+        if not bits_equal(y, yp):
+            raise AssertionError(f"{cls}: W8A8 kernel output != plain")
+        ref = (x @ w).float()
+        errs.setdefault(cls, []).append(
+            ((y.float() - ref).abs().mean() / ref.abs().mean()).item())
+    log("[lm-ptq] every site bit-equal to the plain version; mean relative "
+        "error against the bf16 product: " + ", ".join(
+            f"{cls} {np.mean(v):.4f}" for cls, v in errs.items()))
+    # 4-bit weights of layer 0 through the bit-serial kernel (signed planes)
+    sub = {blk: {name: stage[blk][name][0] for _, _, (b, name) in LM_LINEARS
+                 if b == blk} for blk in ("attn", "mlp")}
+    q4 = ptq.quantize_lm_params(sub, bits=4)
+    bsm.bitserial_matmul.launches = 0
+    rel = []
+    for cls, site, (blk, name) in LM_LINEARS:
+        x = kept[f"layer0/{site}"]
+        y = ptq.QuantizedLinear(q4[blk][name], stats.qparams(
+            f"layer0/{site}"), bits=4)(x)
+        ref = (x @ sub[blk][name]).float()
+        rel.append(((y.float() - ref).abs().mean() / ref.abs().mean()).item())
+    torch.cuda.synchronize()
+    log(f"[lm-ptq] layer 0 at 4 bits through bitserial_linear: "
+        f"bitserial_matmul launches {bsm.bitserial_matmul.launches}, mean "
+        f"relative error {np.mean(rel):.4f} against the bf16 product")
+    if bsm.bitserial_matmul.launches != len(LM_LINEARS):
+        raise AssertionError("the 4-bit linears did not launch the "
+                             "bit-serial kernel once each")
+    return launches
+
+
 def _kernel_entry(name, source, replaces, launches, worst, rows):
     """One entry of the kernels line; times and bound summed over the
-    four shapes of MAIN_SHAPES."""
+    kernel's shapes (``rows``)."""
     total = {k: sum(r[k] for r in rows) for k in
              ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms",
               "ops_ms")}
@@ -586,47 +1057,77 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 2
+    from repro_torch.configs import get_config
     from repro_torch.core import backends, bitserial, faults, nc_layers
     from repro_torch.core import quantize
     from repro_torch.kernels import bitserial_matmul as bsm
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
     from repro_torch.launch import serve
-    from repro_torch.models import inception
+    from repro_torch.models import inception, layers, transformer
+    from repro_torch.quant import ptq
+
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        log(f"[wall] {name}: {walls[name]:.1f} s")
+        return out
 
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"[card] {card}")
-    t0 = time.perf_counter()
-    bsm.build_all()
-    log(f"[build] bitserial_gemm and bitserial_gemm_a4 built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name in ("bitserial_gemm", "bitserial_gemm_a4"):
-        for line in bsm.build_log(name).splitlines():
+    timed("build", cuda_build.build_all)
+    for name in ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
+                 "flash_attention"):
+        for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-    worst = phase_kernel(bsm, dev)
-    worst_a4 = phase_kernel_a4(bsm, dev)
+    worst = timed("kernel", phase_kernel, bsm, dev)
+    worst_a4 = timed("kernel-a4", phase_kernel_a4, bsm, dev)
+    worst_qm = timed("kernel-qm", phase_quant_kernel, qm, dev)
+    worst_fa = max(timed("kernel-fa", phase_flash_kernel, fa, dev))
     cfg = inception.FULL
     params = inception.init_params(torch.Generator().manual_seed(0),
                                    config=cfg, device=dev)
     rng = np.random.default_rng(0)
     images = [rng.random((cfg.img, cfg.img, 3), dtype=np.float32)
               for _ in range(4)]
-    launches, _, served = phase_serve(inception, serve, backends, bsm,
-                                      params, images, dev, cfg)
-    launches_a4 = phase_four_bit(nc_layers, quantize, ops, backends, bsm, dev)
-    faulted_wall, reexec = phase_faulted_serve(
-        inception, serve, faults, nc_layers, backends, bsm, params,
-        images[:B], served, dev, cfg)
+    launches, _, served = timed("serve", phase_serve, inception, serve,
+                                backends, bsm, params, images, dev, cfg)
+    launches_a4 = timed("4-bit", phase_four_bit, nc_layers, quantize, ops,
+                        backends, bsm, dev)
+    faulted_wall, reexec = timed(
+        "faults", phase_faulted_serve, inception, serve, faults, nc_layers,
+        backends, bsm, params, images[:B], served, dev, cfg)
     x = torch.from_numpy(np.stack(images[:B])).to(dev)
-    t_forward, wpack = phase_plain_forward(inception, ops, bsm, params, x,
-                                           dev, cfg)
+    t_forward, wpack = timed("forward", phase_plain_forward, inception, ops,
+                             bsm, params, x, dev, cfg)
     log(f"[faults] checked, compressed, faulted batch-{B} serving "
         f"{faulted_wall:.2f} s against the clean batch-{B} forward "
         f"{t_forward:.2f} s ({reexec} passes re-run)")
-    phase_split(inception, nc_layers, bitserial, params, x, wpack, dev, cfg)
-    rows = phase_times(bsm, dev)
-    rows_a4 = phase_times_a4(bsm, dev)
+    timed("split", phase_split, inception, nc_layers, bitserial, params, x,
+          wpack, dev, cfg)
+    del params, wpack, served, x
+    lm_cfg = get_config(LM_ARCH)
+    lm_params = timed("lm-init", lambda: transformer.init_lm(
+        lm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
+    prompts = _lm_prompts(lm_cfg.vocab_size)
+    launches_fa, _ = timed("lm-serve", phase_lm_serve, transformer, serve, fa,
+                           lm_cfg, lm_params, prompts, dev)
+    launches_qm = timed("lm-ptq", phase_lm_ptq, transformer, layers, ptq,
+                        ops, qm, bsm, lm_cfg, lm_params, prompts, dev)
+    del lm_params
+    rows = timed("times", phase_times, bsm, dev)
+    rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
+    rows_qm = timed("times-qm", phase_times_quant, qm, dev)
+    rows_fa = timed("times-fa", phase_times_flash, fa, dev)
     kernels = [
         _kernel_entry("bitserial_matmul",
                       "src/repro_torch/csrc/bitserial_gemm.cu",
@@ -636,7 +1137,15 @@ def main() -> int:
                       "src/repro_torch/csrc/bitserial_gemm_a4.cu",
                       "src/repro/kernels/bitserial_matmul.py:219",
                       launches_a4, worst_a4, rows_a4),
+        _kernel_entry("quant_matmul", "src/repro_torch/csrc/quant_gemm.cu",
+                      "src/repro/kernels/quant_matmul.py:52",
+                      launches_qm, worst_qm, rows_qm),
+        _kernel_entry("flash_attention",
+                      "src/repro_torch/csrc/flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:88",
+                      launches_fa, worst_fa, rows_fa),
     ]
+    log(f"[wall] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,6 +6,9 @@ multiplier and a zero point, and (3) requantizes every element in-cache with
 integer multiply/add/shift.  This module is the CPU-side scalar step and the
 integer requantization, bit-exact with ``repro.core.quantize``: every scalar
 is computed in float32 with round-half-even (``torch.round``), on the CPU.
+The tensor functions (``quantize``, ``dequantize``, ``fake_quant``,
+``quantize_per_channel``) run on the tensor's device, in float32 with
+round-half-even, and give the reference's bytes.
 
 ``QuantParams.scale`` is a Python float holding a float32 value and
 ``zero_point`` a Python int, so host code can use them directly.
@@ -21,6 +24,11 @@ __all__ = [
     "QuantParams",
     "f32",
     "choose_qparams",
+    "choose_qparams_symmetric",
+    "quantize",
+    "dequantize",
+    "fake_quant",
+    "quantize_per_channel",
     "fixed_point_multiplier",
     "requantize_fixedpoint",
 ]
@@ -65,6 +73,74 @@ def choose_qparams(x_min, x_max, bits: int = 8,
     zp = torch.clamp(torch.round(qmin - lo / scale), qmin, qmax)
     return QuantParams(scale=float(scale), zero_point=int(zp), bits=bits,
                        signed=signed)
+
+
+def choose_qparams_symmetric(x_absmax, bits: int = 8) -> QuantParams:
+    """Symmetric signed quantization (zero_point = 0), the W8A8 kernel's
+    activation convention; ``x_absmax`` is taken as float32."""
+    qmax = (1 << (bits - 1)) - 1
+    amax = torch.tensor(float(x_absmax), dtype=torch.float32)
+    scale = torch.clamp_min(amax, 1e-12) / qmax
+    return QuantParams(scale=float(scale), zero_point=0, bits=bits,
+                       signed=True)
+
+
+def _scale_t(qp: QuantParams, device) -> torch.Tensor:
+    return torch.tensor(qp.scale, dtype=torch.float32, device=device)
+
+
+def quantize(x: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    """``clip(round(x / scale) + zero_point)`` in float32, as int8 (signed)
+    or uint8."""
+    q = torch.round(x.to(torch.float32) / _scale_t(qp, x.device))
+    q = torch.clamp(q + qp.zero_point, qp.qmin, qp.qmax)
+    return q.to(torch.int8 if qp.signed else torch.uint8)
+
+
+def dequantize(q: torch.Tensor, qp: QuantParams) -> torch.Tensor:
+    return (q.to(torch.float32) - qp.zero_point) * _scale_t(qp, q.device)
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8,
+               signed: bool = False) -> torch.Tensor:
+    """Quantize-dequantize round trip (per-tensor, dynamic min/max)."""
+    qp = choose_qparams(x.min(), x.max(), bits=bits, signed=signed)
+    return dequantize(quantize(x, qp), qp)
+
+
+def quantize_per_channel(w: torch.Tensor, axis: int = -1, bits: int = 8):
+    """Symmetric per-channel weight quantization: ``(int8 weights, float32
+    scales broadcastable against w)``, the scales reduced over every axis
+    but ``axis``.  A stacked ``[L, K, N]`` leaf with ``axis=-1`` thus gets
+    one scale per output channel shared by all L layers (shape
+    ``[1, 1, N]``), as in the reference.
+
+    Leaves of three or more dimensions are quantized one slice of the
+    leading axis at a time (the max over slices is the same number), so no
+    float32 copy of the whole leaf is made."""
+    axis %= w.ndim
+    qmax = (1 << (bits - 1)) - 1
+    sliced = w.ndim >= 3 and axis != 0
+    if sliced:
+        inner = [d - 1 for d in range(1, w.ndim) if d != axis]
+        amax = torch.stack([w[i].to(torch.float32).abs().amax(dim=inner,
+                                                             keepdim=True)
+                            for i in range(w.shape[0])]).amax(0, keepdim=True)
+    else:
+        amax = w.to(torch.float32).abs().amax(
+            dim=[d for d in range(w.ndim) if d != axis], keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+
+    def q_of(wf, s):
+        return torch.clamp(torch.round(wf / s), -qmax - 1, qmax).to(torch.int8)
+
+    if sliced:
+        q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        for i in range(w.shape[0]):
+            q[i] = q_of(w[i].to(torch.float32), scale[0])
+    else:
+        q = q_of(w.to(torch.float32), scale)
+    return q, scale
 
 
 def fixed_point_multiplier(real_multiplier, bits: int = 31) -> tuple[int, int]:

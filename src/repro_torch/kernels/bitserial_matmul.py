@@ -21,20 +21,15 @@ tensor: a kernel that does not build, or a launch that fails, raises
 :class:`KernelError`, which the serving engine's recovery ladder re-raises.
 Each source is compiled with ``nvcc`` on first use into ``build/kernels/``
 at the repository root, keyed by the hash of its own text, and loaded
-through ``ctypes``.
+through ``ctypes`` (:mod:`repro_torch.kernels.cuda_build`).
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import tempfile
-import threading
-
 import torch
+
+from repro_torch.kernels.cuda_build import (KernelError, build_all,
+                                            build_log)
+from repro_torch.kernels import cuda_build as _cb
 
 __all__ = ["KernelError", "bitserial_matmul", "bitserial_matmul_plain",
            "bitserial_matmul_a4", "bitserial_matmul_a4_plain",
@@ -45,113 +40,11 @@ DEFAULT_BK = 256  # the reference kernels' block sizes: the mask granularity
 DEFAULT_BN = 128
 DEFAULT_BK2 = DEFAULT_BK // 2  # packed activation bytes per a4 K-block
 
-_CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-_C = ctypes
-# kernel name -> the ctypes signature of its launcher (the source is
-# csrc/<name>.cu and the launcher is the extern "C" function <name>)
-_SIGNATURES = {
-    "bitserial_gemm": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
-                       _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_void_p,
-                       _C.c_float, _C.c_void_p, _C.c_int, _C.c_int, _C.c_int,
-                       _C.c_int, _C.c_int, _C.c_int, _C.c_void_p],
-    "bitserial_gemm_a4": [_C.c_void_p, _C.c_int, _C.c_void_p, _C.c_void_p,
-                          _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-                          _C.c_void_p, _C.c_float, _C.c_void_p, _C.c_int,
-                          _C.c_int, _C.c_int, _C.c_int, _C.c_int, _C.c_int,
-                          _C.c_int, _C.c_void_p],
-}
-_LIBS: dict[str, ctypes.CDLL] = {}
-_LIB_LOCK = threading.Lock()
 
-
-class KernelError(RuntimeError):
-    """A kernel did not build or its launch failed."""
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = pathlib.Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise KernelError("nvcc not found: the bit-serial GEMM kernels cannot "
-                      "be built (install the CUDA toolkit or put nvcc on "
-                      "PATH)")
-
-
-def _lib_path(name: str) -> pathlib.Path:
-    source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"lib{name}-{digest}.so"
-
-
-def _load(name: str) -> ctypes.CDLL:
-    lib_path = _lib_path(name)
-    try:
-        lib = ctypes.CDLL(str(lib_path))
-    except OSError as e:
-        raise KernelError(f"cannot load {lib_path}: {e}") from e
-    fn = getattr(lib, name)
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def build_all(names=tuple(_SIGNATURES)) -> dict[str, ctypes.CDLL]:
-    """Compile the kernels of ``names`` that are not built for their
-    current source, one ``nvcc`` per source, all started together, then
-    load them.  The compiler's ``-Xptxas -v`` report is kept beside each
-    library (:func:`build_log`)."""
-    with _LIB_LOCK:
-        todo = [n for n in names if n not in _LIBS]
-        procs = []
-        for name in todo:
-            lib_path = _lib_path(name)
-            if lib_path.exists():
-                continue
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, str(_CSRC / f"{name}.cu")]
-            procs.append((name, lib_path, tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)))
-        failures = []
-        for name, lib_path, tmp, proc in procs:
-            _, err = proc.communicate()
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                failures.append(f"{name}: nvcc failed ({proc.returncode}):\n"
-                                f"{err}")
-                continue
-            os.replace(tmp, lib_path)
-            # keep the compiler's report (registers, shared memory, spills)
-            lib_path.with_suffix(".log").write_text(err)
-        if failures:
-            raise KernelError("\n".join(failures))
-        for name in todo:
-            _LIBS[name] = _load(name)
-        return {n: _LIBS[n] for n in names}
-
-
-def build(name: str = "bitserial_gemm") -> ctypes.CDLL:
-    """Compile (once per source version) and load one kernel library."""
-    if name not in _SIGNATURES:
-        raise ValueError(f"unknown kernel {name!r}; known: "
-                         f"{', '.join(_SIGNATURES)}")
-    lib = _LIBS.get(name)
-    return lib if lib is not None else build_all((name,))[name]
-
-
-def build_log(name: str = "bitserial_gemm") -> str:
-    """The ``-Xptxas -v`` report of the current source's build ('' if the
-    library was built elsewhere)."""
-    log = _lib_path(name).with_suffix(".log")
-    return log.read_text() if log.exists() else ""
+def build(name: str = "bitserial_gemm"):
+    """Compile (once per source version) and load one kernel library
+    (:func:`repro_torch.kernels.cuda_build.build`)."""
+    return _cb.build(name)
 
 
 def plane_block_mask(planes: torch.Tensor, n_bits: int,
@@ -259,14 +152,7 @@ def bitserial_matmul_plain(x: torch.Tensor, planes: torch.Tensor,
 def _prepare_launch(tensors, w_scale, plane_mask, dev):
     """Validate that every operand of a kernel launch is a contiguous
     tensor on one CUDA device, with float32 scales and an int8 mask."""
-    for name, t in tensors:
-        if t is None:
-            continue
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; the kernel needs "
-                             f"every operand on one CUDA device ({dev})")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _cb.check_operands(tensors, dev)
     if w_scale is not None and w_scale.dtype != torch.float32:
         raise TypeError(f"w_scale must be float32, got {w_scale.dtype}")
     if plane_mask is not None and plane_mask.dtype != torch.int8:
@@ -301,16 +187,14 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
     lib = build("bitserial_gemm")
     nk, nn = -(-K // bk), -(-N // bn)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bitserial_gemm(
             x.data_ptr(), int(x.dtype == torch.int8), planes.data_ptr(),
             plane_mask.data_ptr() if plane_mask is not None else None,
             bk, bn, nk, nn,
             w_scale.data_ptr() if w_scale is not None else None,
             float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
-            M, N, K, n_bits, int(signed), stream)
-    if err != 0:
-        raise KernelError(f"bitserial_gemm launch failed: cudaError_t {err}")
+            M, N, K, n_bits, int(signed), _cb.launch_stream(dev))
+    _cb.raise_on_error(err, "bitserial_gemm")
     bitserial_matmul.launches += 1
     return out
 
@@ -438,17 +322,14 @@ def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
     lib = build("bitserial_gemm_a4")
     nk, nn = -(-K2 // bk2), -(-N // bn)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.bitserial_gemm_a4(
             x_packed.data_ptr(), int(signed), planes.data_ptr(),
             plane_mask.data_ptr() if plane_mask is not None else None,
             2 * bk2, bn, nk, nn,
             w_scale.data_ptr() if w_scale is not None else None,
             float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
-            M, N, K, K2, n_bits, int(signed), stream)
-    if err != 0:
-        raise KernelError(f"bitserial_gemm_a4 launch failed: cudaError_t "
-                          f"{err}")
+            M, N, K, K2, n_bits, int(signed), _cb.launch_stream(dev))
+    _cb.raise_on_error(err, "bitserial_gemm_a4")
     bitserial_matmul_a4.launches += 1
     return out
 

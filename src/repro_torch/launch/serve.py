@@ -1,15 +1,25 @@
-"""Neural Cache image serving (§VI-C batched streaming) on the GPU.
+"""Batched serving on the GPU: LM continuous-batching decode AND Neural
+Cache batched image inference (the port of ``repro.launch.serve``).
 
-The port of ``repro.launch.serve``'s image path: :class:`NCServingEngine`
-admits queued image requests into batches and runs each batch as ONE
+The LM path (:class:`ServingEngine`) is the standard production pattern:
+requests queue up; up to ``max_batch`` active sequences share the fixed
+decode batch; each admitted request is prefilled on its own (its attention
+through the flash-attention kernel) and its KV cache written into its
+slot's row; one ``decode_step`` then advances every active slot one token,
+each at its own position; finished sequences free their slot.  A failed
+prefill fails that one request; a failed decode fails the active batch.
+
+The Neural Cache path (:class:`NCServingEngine`) admits queued image
+requests into batches and runs each batch as ONE
 ``models.inception.nc_forward`` through the bit-serial emulation, with the
 filters resident and the per-layer plan taken from a
 :class:`~repro_torch.core.schedule.NetworkSchedule` planned once per batch
 size.  With ``slo_ms`` the admission policy of ``core/slo.py`` sizes the
-batches from the cycle model calibrated against measured batch walls.  The
-LM serving engine is not part of this package yet.
+batches from the cycle model calibrated against measured batch walls.
 
 Usage:
+    python -m repro_torch.launch.serve --arch qwen2-7b --requests 4
+    python -m repro_torch.launch.serve --arch qwen2-7b --reduced --device cpu
     python -m repro_torch.launch.serve --neural-cache --requests 8
     python -m repro_torch.launch.serve --neural-cache --full --requests 4 --max-batch 2
     python -m repro_torch.launch.serve --neural-cache --device cpu --requests 2
@@ -25,6 +35,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.configs import REGISTRY, get_config, reduced_config
 from repro_torch.core import backends as nc_backends
 from repro_torch.core import schedule as nc_schedule
 from repro_torch.core import slo as nc_slo
@@ -33,6 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.bitserial_matmul import KernelError
 from repro_torch.launch.engine_api import Engine as _EngineAPI
 from repro_torch.models import inception
+from repro_torch.models import transformer as T
 
 
 class BatchQueueEngine:
@@ -61,6 +73,133 @@ class BatchQueueEngine:
             r.failed = True
             r.error = msg
             self.failed.append(r)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # [T] int32
+    max_tokens: int = 16
+    out: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    failed: bool = False
+    error: str | None = None
+
+
+@dataclasses.dataclass
+class Slot:
+    active: bool = False
+    req: Request | None = None
+    pos: int = 0
+
+
+class ServingEngine(BatchQueueEngine):
+    """Fixed-batch continuous-batching LM engine over ``decode_step``, on
+    ``device`` (default ``"cuda"``; raises without a GPU unless
+    ``device="cpu"``); ``params`` must live there.  A failed prefill fails
+    its request and a failed decode the active batch, as in the reference;
+    a :class:`~repro_torch.kernels.bitserial_matmul.KernelError` (a kernel
+    that did not build or launch) is re-raised instead."""
+
+    def __init__(self, cfg, params, *, max_batch: int = 4,
+                 max_len: int = 512, eos: int = -1,
+                 device: str | torch.device | None = None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.cfg, self.params = cfg, params
+        self.max_batch, self.max_len, self.eos = max_batch, max_len, eos
+        self.caches = T.init_caches(cfg, max_batch, max_len,
+                                    device=self.device)
+        self.slots = [Slot() for _ in range(max_batch)]
+        self.tokens = torch.zeros((max_batch, 1), dtype=torch.int32,
+                                  device=self.device)
+
+    def _admit(self) -> None:
+        for i, slot in enumerate(self.slots):
+            if slot.active or not self.queue:
+                continue
+            req = self.queue.pop(0)
+            # prefill this slot: per-request prefill into row i.  A prefill
+            # failure fails only this request; the slot stays free for the
+            # next queued one
+            toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
+                                   device=self.device)[None]
+            try:
+                logits, caches1 = T.prefill(self.cfg, self.params, toks,
+                                            max_len=self.max_len)
+            except KernelError:
+                raise
+            except Exception as e:  # noqa: BLE001 — batch-failure contract
+                self._fail_requests([req], e)
+                continue
+            _write_slot(self.caches, caches1, i)
+            nxt = int(torch.argmax(logits[0]))
+            req.out.append(nxt)
+            self.tokens[i, 0] = nxt
+            slot.active, slot.req, slot.pos = True, req, len(req.prompt)
+
+    def step(self) -> bool:
+        self._admit()
+        if not any(s.active for s in self.slots):
+            return False
+        # per-slot positions: slots admitted with different prompt lengths
+        # decode, and write KV, each at its OWN position.  Inactive slots
+        # pass 0; their rows are ignored and overwritten by the next
+        # admission's prefill
+        pos = torch.tensor([s.pos if s.active else 0 for s in self.slots],
+                           dtype=torch.int32, device=self.device)
+        try:
+            logits, self.caches = T.decode_step(self.cfg, self.params,
+                                                self.tokens, self.caches, pos)
+        except KernelError:
+            raise
+        except Exception as e:  # noqa: BLE001 — batch-failure contract
+            # the fused decode advances every active slot at once, so a
+            # failure fails exactly the admitted batch (the active slots);
+            # freed slots keep draining the queue
+            active = [s.req for s in self.slots if s.active]
+            self._fail_requests(active, e)
+            for s in self.slots:
+                if s.active:
+                    s.active, s.req = False, None
+            self.steps += 1
+            return True
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        for i, slot in enumerate(self.slots):
+            if not slot.active:
+                continue
+            tok = int(nxt[i])
+            slot.req.out.append(tok)
+            self.tokens[i, 0] = tok
+            slot.pos += 1
+            if (tok == self.eos or len(slot.req.out) >= slot.req.max_tokens
+                    or slot.pos >= self.max_len - 1):
+                slot.req.done = True
+                self.completed.append(slot.req)
+                slot.active, slot.req = False, None
+        self.steps += 1
+        return True
+
+    def run(self) -> list[Request]:
+        while self.queue or any(s.active for s in self.slots):
+            self.step()
+        return self.completed
+
+
+def _write_slot(caches, caches1, i: int):
+    """Copy a single-sequence prefill cache into batch row ``i`` (in place;
+    the leaves are ``[L, B, ...]``)."""
+
+    def leaf(c, c1):
+        if isinstance(c, dict):
+            for k in c:
+                leaf(c[k], c1[k])
+        else:
+            c[:, i:i + 1] = c1.to(c.dtype)
+
+    for c, c1 in zip(caches, caches1):
+        leaf(c, c1)
+    return caches
 
 
 @dataclasses.dataclass
@@ -419,11 +558,48 @@ def _main_neural_cache(args) -> int:
     return 0 if finite and len(done) == args.requests else 1
 
 
+def _main_lm(args) -> int:
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduced_config(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_lm(cfg, gen, device=device)
+    engine = ServingEngine(cfg, params, max_batch=args.max_batch,
+                           max_len=args.max_len, device=device)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.perf_counter()
+    for r in range(args.requests):
+        engine.submit(Request(
+            rid=r,
+            prompt=rng.integers(2, cfg.vocab_size,
+                                size=args.prompt_len).astype(np.int32),
+            max_tokens=args.max_tokens))
+    done = engine.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    total_tokens = sum(len(r.out) for r in done)
+    print(f"[serve] {cfg.name} on {device}: {len(done)} requests, "
+          f"{total_tokens} tokens in {dt:.2f}s ({total_tokens / dt:.1f} "
+          f"tok/s, {engine.steps} engine steps, batch {args.max_batch}, "
+          f"{len(engine.failed)} failed)")
+    return 0 if len(done) == args.requests else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(REGISTRY),
+                    help="serve this LM (dense families) with seeded random "
+                         "weights")
     ap.add_argument("--neural-cache", action="store_true",
                     help="serve Inception images through the Neural Cache "
-                         "emulation (the only serving path of this package)")
+                         "emulation instead of an LM")
+    ap.add_argument("--reduced", action="store_true",
+                    help="serve the --arch model's reduced configuration")
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-tokens", type=int, default=16)
     ap.add_argument("--full", action="store_true",
                     help="serve the full 299 px, 1001-class network instead "
                          "of the reduced configuration")
@@ -448,9 +624,11 @@ def main(argv=None) -> int:
                     help="per-request latency SLO: batches sized by the "
                          "predicted p99 from the cycle model")
     args = ap.parse_args(argv)
-    if not args.neural_cache:
-        ap.error("only --neural-cache serving is available in this package")
-    return _main_neural_cache(args)
+    if args.neural_cache:
+        return _main_neural_cache(args)
+    if args.arch is None:
+        ap.error("--arch is required unless --neural-cache is given")
+    return _main_lm(args)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,7 @@ import torch
 
 from repro.kernels import bitserial_matmul as rk
 from repro.kernels import ops as rops
+from repro_torch.kernels import cuda_build
 from repro_torch.kernels import bitserial_matmul as tk
 from repro_torch.kernels import ops as tops
 
@@ -120,9 +121,9 @@ def test_failed_build_raises_kernel_error(tmp_path, monkeypatch):
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("#!/bin/sh\necho 'error: injected' >&2\nexit 1\n")
     nvcc.chmod(0o755)
-    monkeypatch.setattr(tk.shutil, "which", lambda name: str(nvcc))
-    monkeypatch.setattr(tk, "_BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(tk, "_LIBS", {})
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: str(nvcc))
+    monkeypatch.setattr(cuda_build, "_BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
     with pytest.raises(tk.KernelError, match="injected"):
         tk.build()
     with pytest.raises(tk.KernelError, match="bitserial_gemm_a4: nvcc"):
