@@ -1,5 +1,5 @@
-"""Bit-serial GEMMs: the hand-written Hopper kernels, their build and their
-plain versions.
+"""Bit-serial GEMMs: the hand-written Hopper kernels and their plain
+versions.
 
     out = sum_b pw[b] * (x @ plane_b),  pw[b] = 2^b  (MSB: -2^(n-1) if signed)
 
@@ -27,24 +27,17 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda_build import (KernelError, build_all,
-                                            build_log)
+from repro_torch.kernels.cuda_build import KernelError
 from repro_torch.kernels import cuda_build as _cb
 
 __all__ = ["KernelError", "bitserial_matmul", "bitserial_matmul_plain",
            "bitserial_matmul_a4", "bitserial_matmul_a4_plain",
            "pack_activation_nibbles", "unpack_activation_nibbles",
-           "build", "build_all", "build_log", "plane_block_mask"]
+           "plane_block_mask"]
 
 DEFAULT_BK = 256  # the reference kernels' block sizes: the mask granularity
 DEFAULT_BN = 128
 DEFAULT_BK2 = DEFAULT_BK // 2  # packed activation bytes per a4 K-block
-
-
-def build(name: str = "bitserial_gemm"):
-    """Compile (once per source version) and load one kernel library
-    (:func:`repro_torch.kernels.cuda_build.build`)."""
-    return _cb.build(name)
 
 
 def plane_block_mask(planes: torch.Tensor, n_bits: int,
@@ -184,7 +177,7 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    lib = build("bitserial_gemm")
+    lib = _cb.build("bitserial_gemm")
     nk, nn = -(-K // bk), -(-N // bn)
     with torch.cuda.device(dev):
         err = lib.bitserial_gemm(
@@ -319,7 +312,7 @@ def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     if M == 0 or N == 0:
         return out
-    lib = build("bitserial_gemm_a4")
+    lib = _cb.build("bitserial_gemm_a4")
     nk, nn = -(-K2 // bk2), -(-N // bn)
     with torch.cuda.device(dev):
         err = lib.bitserial_gemm_a4(
