@@ -13,14 +13,21 @@ results go to lines before the last; each phase prints its wall):
 3. each kernel against its plain torch version on the card: the 8-bit
    bit-serial kernel at random ragged shapes (n_bits 1..8, signed and
    unsigned planes, with and without the occupancy mask, int32 and float32
-   epilogues) and at the full-width Inception shapes; the W4A4 kernel at
+   epilogues), at shapes ragged against its 128x64x64 tile, at split-K
+   shapes (M 1, 2, 17; K 2048, 2593; all four x/plane signedness pairs),
+   at int32 sums that wrap (|sum| < 2^53, where the plain version's
+   float64 products are exact) and at the full-width Inception shapes,
+   printing each shape's split-K factor; the W4A4 kernel at
    random ragged shapes (n_bits 1..4, odd and even K, signed and unsigned,
    masked or not, both epilogues) and at the full-width 4-bit shapes; the
    W8A8 ``quant_matmul`` kernel at random ragged shapes (bias or none) and
    at the LM's linear shapes; all three bit-equal.  ``flash_attention`` at
-   random ragged (B, H, Hkv, Tq, Tk, D), causal and not, and at the four
-   served prompts' shapes, float32 (rtol = atol = 1e-5) and bfloat16
-   (rtol = 2^-7, one bf16 ulp; atol = 1e-5);
+   random ragged (B, H, Hkv, Tq, Tk, D), causal and not, at Tq and Tk
+   ragged against the bf16 kernel's query and KV tiles on both sides, at
+   every head size, at B*H = 224, with outputs near cancellation (V whose
+   columns sum to zero), and at the four served prompts' shapes, float32
+   (rtol = atol = 1e-5) and bfloat16 (rtol = 2^-7, one bf16 ulp; atol =
+   1e-5); the build phase prints the tiles each flash route runs;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
@@ -51,8 +58,9 @@ results go to lines before the last; each phase prints its wall):
    are each held against the plain version as in phase 3; a standalone
    batch-1 ``decode_step`` loop fed the served tokens gives logits within
    0.125 of every served decode step's, and the same token unless its
-   top-2 logit margin is below 0.25; prints the prefill wall, decode
-   tokens/s and peak device memory;
+   top-2 logit margin is below 0.25; prints the prefill wall, the served
+   attention calls' device time (CUDA events around each) and its share
+   of the prefill wall, decode tokens/s and peak device memory;
 9. full-width post-training quantization: ``CalibrationStats`` over every
    linear site's input from the float prefills of the served prompts,
    ``quantize_lm_params``, then W8A8 ``QuantizedLinear`` at all 28 x 7
@@ -62,11 +70,16 @@ results go to lines before the last; each phase prints its wall):
    bf16 product per site class; layer 0's 7 linears at 4 bits through
    ``bitserial_linear`` (the bit-serial kernel with signed planes, 7
    launches), each kernel result bit-equal to the plain version's;
-10. times on the card (CUDA events): each kernel, its plain version and one
-    PyTorch call at its shapes (``torch.matmul`` on float64 copies for the
-    bit-serial kernels, ``torch._int_mm`` plus the epilogue for
-    quant_matmul, ``scaled_dot_product_attention`` on KV repeated to H
-    heads for flash_attention), beside the bound;
+10. times on the card: each kernel and one PyTorch call at its shapes
+    (``torch.matmul`` on float64 copies for the bit-serial kernels,
+    ``torch._int_mm`` plus the epilogue for quant_matmul,
+    ``scaled_dot_product_attention`` on KV repeated to H heads for
+    flash_attention) as device time, 20 calls captured in one CUDA graph
+    and replayed between CUDA events (the host's launch overhead is
+    printed apart as the eager time), and the plain version eagerly,
+    beside the bound; then ``bitserial_matmul`` at the 4-bit PTQ sites'
+    shapes (signed planes, n_bits 4, float epilogue) on lines of their
+    own, outside the kernels line's sums;
 11. one JSON line listing the four kernels, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -136,6 +149,56 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int = 20, rounds: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms: ``reps`` calls captured in one
+    CUDA graph and replayed ``rounds`` times between CUDA events, so that
+    the host's cost of each call (a wrapper's checks and launch) is not
+    counted.  The wrappers launch on the current stream, which capture
+    makes the graph's."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(rounds):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * rounds)
+
+
+def _bitserial_compare(bsm, x, planes, what, **kw):
+    """Hold ``bitserial_matmul`` bit-equal to its plain version on the
+    same operands (both epilogues unless ``out_dtype`` is given); returns
+    the largest absolute difference."""
+    worst = 0.0
+    dtypes = ((kw.pop("out_dtype"),) if "out_dtype" in kw
+              else (torch.int32, torch.float32))
+    for out_dtype in dtypes:
+        got = bsm.bitserial_matmul(x, planes, out_dtype=out_dtype, **kw)
+        want = bsm.bitserial_matmul_plain(x, planes, out_dtype=out_dtype,
+                                          **kw)
+        torch.cuda.synchronize()
+        diff = (got.double() - want.double()).abs().max().item()
+        if not bits_equal(got, want):
+            raise AssertionError(f"kernel != plain at {what} out={out_dtype}"
+                                 f": max diff {diff}")
+        worst = max(worst, diff)
+    return worst
+
+
 def phase_kernel(bsm, dev) -> float:
     """Kernel against plain at random and main-path shapes; returns the
     largest absolute difference (launches here are not main-path counts)."""
@@ -162,32 +225,69 @@ def phase_kernel(bsm, dev) -> float:
             full = bsm.plane_block_mask(planes, n_bits, 48, 80)
             drop = torch.rand(full.shape, generator=g) < 0.3
             mask = torch.where(drop.to(dev), torch.zeros_like(full), full)
-        kw = dict(n_bits=n_bits, signed=signed, block_k=48, block_n=80)
-        for out_dtype in (torch.int32, torch.float32):
-            got = bsm.bitserial_matmul(x, planes, 0.37, w_scale, mask,
-                                       out_dtype=out_dtype, **kw)
-            want = bsm.bitserial_matmul_plain(x, planes, 0.37, w_scale, mask,
-                                              out_dtype=out_dtype, **kw)
-            torch.cuda.synchronize()
-            if not bits_equal(got, want):
-                raise AssertionError(
-                    f"kernel != plain at M,K,N={M, K, N} n_bits={n_bits} "
-                    f"signed={signed} mask={masked} x={x_dtype} "
-                    f"out={out_dtype}: max diff "
-                    f"{(got.double() - want.double()).abs().max().item()}")
-            worst = max(worst, (got.double() - want.double()).abs().max().item())
+        worst = max(worst, _bitserial_compare(
+            bsm, x, planes, f"M,K,N={M, K, N} n_bits={n_bits} signed={signed}"
+            f" mask={masked} x={x_dtype}", x_scale=0.37, w_scale=w_scale,
+            plane_mask=mask, n_bits=n_bits, signed=signed, block_k=48,
+            block_n=80))
     log(f"[kernel] {len(cases) * 2} random cases equal to the plain version")
+    # shapes ragged against the 128x64x64 tile, and split-K shapes, with
+    # all four x/plane signedness pairs; the split shapes masked too
+    n = 0
+    edges = [(129, 193, 65), (383, 130, 191), (127, 65, 63)]
+    splits = [(M, K, N) for M in (1, 2, 17) for K in (2048, 2593)
+              for N in (1001, 300)]
+    for i, (M, K, N) in enumerate(edges + splits):
+        n_bits = 8 - i % 4
+        for x_dtype in (torch.uint8, torch.int8):
+            for signed in (False, True):
+                x = torch.randint(0, 256, (M, K), generator=g,
+                                  dtype=torch.int64)
+                x = x.to(torch.uint8).view(x_dtype).to(dev)
+                planes = torch.randint(0, 1 << n_bits, (K, N), generator=g,
+                                       dtype=torch.int64).to(torch.uint8)
+                planes = planes.to(dev)
+                w_scale = (torch.rand(N, generator=g) + 0.5).to(dev)
+                kw = dict(n_bits=n_bits, signed=signed, block_k=48,
+                          block_n=80)
+                what = (f"M,K,N={M, K, N} n_bits={n_bits} x={x_dtype} "
+                        f"signed={signed} split={bsm.split_k(M, N, K)[0]}")
+                worst = max(worst, _bitserial_compare(
+                    bsm, x, planes, what, x_scale=0.37, w_scale=w_scale,
+                    **kw))
+                n += 2
+                if (M, K, N) in splits:
+                    full = bsm.plane_block_mask(planes, n_bits, 48, 80)
+                    drop = torch.rand(full.shape, generator=g) < 0.3
+                    mask = torch.where(drop.to(dev), torch.zeros_like(full),
+                                       full)
+                    worst = max(worst, _bitserial_compare(
+                        bsm, x, planes, what + " masked", x_scale=0.37,
+                        w_scale=w_scale, plane_mask=mask, **kw))
+                    n += 2
+    log(f"[kernel] {n} cases ragged against the kernel's tile or split "
+        f"along K (splits "
+        f"{sorted({bsm.split_k(M, N, K)[0] for M, K, N in splits})}) equal "
+        f"to the plain version")
+    # int32 sums past 2^31 wrap, split along K and not; all-ones operands
+    # keep the plain version's float64 plane products exact (< 2^53)
+    for M, K, N in ((3, 40000, 5), (1030, 34000, 1300)):
+        x = torch.full((M, K), 255, dtype=torch.uint8, device=dev)
+        planes = torch.full((K, N), 255, dtype=torch.uint8, device=dev)
+        top = 255 * 255 * K
+        if not 2 ** 31 < top < 2 ** 53:
+            raise AssertionError(f"wrap case {M, K, N} does not wrap")
+        _bitserial_compare(bsm, x, planes, f"wrap {M}x{K}x{N}", n_bits=8,
+                           out_dtype=torch.int32, signed=False)
+        log(f"[kernel] {M}x{K}x{N}: int32 sum {top} wraps, equal to the "
+            f"plain version (split {bsm.split_k(M, N, K)[0]})")
     for name, M, K, N in MAIN_SHAPES:
         x = torch.randint(0, 256, (M, K), generator=g).to(torch.uint8).to(dev)
         planes = torch.randint(0, 256, (K, N), generator=g).to(torch.uint8).to(dev)
-        got = bsm.bitserial_matmul(x, planes, n_bits=8, out_dtype=torch.int32,
-                                   signed=False)
-        want = bsm.bitserial_matmul_plain(x, planes, n_bits=8,
-                                          out_dtype=torch.int32, signed=False)
-        torch.cuda.synchronize()
-        if not bits_equal(got, want):
-            raise AssertionError(f"kernel != plain at {name} {M}x{K}x{N}")
-        log(f"[kernel] {name} {M}x{K}x{N}: int32 equal to the plain version")
+        _bitserial_compare(bsm, x, planes, f"{name} {M}x{K}x{N}", n_bits=8,
+                           out_dtype=torch.int32, signed=False)
+        log(f"[kernel] {name} {M}x{K}x{N}: int32 equal to the plain version "
+            f"(split {bsm.split_k(M, N, K)[0]})")
     return worst
 
 
@@ -527,11 +627,12 @@ def phase_times(bsm, dev):
         x = torch.randint(0, 256, (M, K), generator=g).to(torch.uint8).to(dev)
         planes = torch.randint(0, 256, (K, N), generator=g).to(torch.uint8).to(dev)
         kw = dict(n_bits=8, out_dtype=torch.int32, signed=False)
-        ms = cuda_ms(lambda: bsm.bitserial_matmul(x, planes, **kw))
+        ms = graph_ms(lambda: bsm.bitserial_matmul(x, planes, **kw))
+        eager_ms = cuda_ms(lambda: bsm.bitserial_matmul(x, planes, **kw))
         plain_ms = cuda_ms(lambda: bsm.bitserial_matmul_plain(x, planes, **kw),
                            reps=3, warmup=1)
         xf, wf = x.double(), planes.double()
-        lib_ms = cuda_ms(lambda: torch.matmul(xf, wf))
+        lib_ms = graph_ms(lambda: torch.matmul(xf, wf))
         if not torch.equal(torch.matmul(xf, wf).to(torch.int64),
                            bsm.bitserial_matmul(x, planes, **kw).to(torch.int64)):
             raise AssertionError(f"torch.matmul yardstick disagrees at {name}")
@@ -546,7 +647,8 @@ def phase_times(bsm, dev):
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bytes_ms=bytes_ms, ops_ms=ops_ms))
-        log(f"[time] {name} {M}x{K}x{N}: kernel {ms:.4f} ms, plain "
+        log(f"[time] {name} {M}x{K}x{N} (split {bsm.split_k(M, N, K)[0]}): "
+            f"kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, torch.matmul f64 {lib_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by})")
     return rows
@@ -560,14 +662,15 @@ def phase_times_a4(bsm, dev):
         xp = xp.to(torch.uint8).to(dev)
         planes = torch.randint(0, 16, (K, N), generator=g).to(torch.uint8).to(dev)
         kw = dict(n_bits=4, out_dtype=torch.int32, signed=False)
-        ms = cuda_ms(lambda: bsm.bitserial_matmul_a4(xp, planes, **kw))
+        ms = graph_ms(lambda: bsm.bitserial_matmul_a4(xp, planes, **kw))
+        eager_ms = cuda_ms(lambda: bsm.bitserial_matmul_a4(xp, planes, **kw))
         plain_ms = cuda_ms(
             lambda: bsm.bitserial_matmul_a4_plain(xp, planes, **kw),
             reps=3, warmup=1)
         b = xp.to(torch.int64)
         xf = torch.stack([b & 0xF, b >> 4], dim=-1).reshape(M, -1)[:, :K]
         xf, wf = xf.double().contiguous(), planes.double()
-        lib_ms = cuda_ms(lambda: torch.matmul(xf, wf))
+        lib_ms = graph_ms(lambda: torch.matmul(xf, wf))
         if not torch.equal(torch.matmul(xf, wf).to(torch.int64),
                            bsm.bitserial_matmul_a4(xp, planes, **kw)
                            .to(torch.int64)):
@@ -583,8 +686,9 @@ def phase_times_a4(bsm, dev):
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms,
                          bytes_ms=bytes_ms, ops_ms=ops_ms))
-        log(f"[time-a4] {name} {M}x{K}x{N}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.matmul f64 {lib_ms:.4f} ms, bound "
+        log(f"[time-a4] {name} {M}x{K}x{N}: kernel {ms:.4f} ms (eager "
+            f"{eager_ms:.4f} ms), plain {plain_ms:.4f} ms, torch.matmul f64 "
+            f"{lib_ms:.4f} ms, bound "
             f"{bound_ms:.5f} ms ({bound_by})")
     return rows
 
@@ -672,6 +776,49 @@ def phase_flash_kernel(fa, dev) -> tuple[float, float]:
                                f"{B, H, Hkv, Tq, Tk, D} {dtype} causal="
                                f"{causal}")
                 n += 1
+    # Tq and Tk ragged against the bf16 kernel's query and KV tiles on both
+    # sides (Tq != Tk under causal masking too), every head size, and
+    # B*H = 224 query heads, enough blocks for the heaviest-first order
+    tiles = fa.kernel_tiles(torch.bfloat16)
+    bq, bkv = tiles["bq"], tiles["bkv"]
+    edges = [(1, 4, 2, bq + 1, bkv + 1, 16), (1, 4, 2, bq - 1, 3 * bkv - 1, 32),
+             (2, 7, 1, 3 * bq - 1, 2 * bkv + 1, 64),
+             (1, 4, 4, 2 * bq + 1, 5 * bkv - 1, 128),
+             (1, 6, 3, 5 * bkv + 3, 2 * bq - 3, 128),
+             (8, 28, 4, 5 * bq - 20, 5 * bq - 20, 128)]
+    for B, H, Hkv, Tq, Tk, D in edges:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, H, Tq, D), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, Hkv, Tk, D), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, Hkv, Tk, D), generator=g).to(dtype).to(dev)
+            for causal in (True, False):
+                _flash_compare(fa, q, k, v, causal, worst,
+                               f"tile edge {B, H, Hkv, Tq, Tk, D} {dtype} "
+                               f"causal={causal}")
+                n += 1
+    # outputs near cancellation: nearly uniform p against V columns of
+    # +1 and -1 that sum to zero, so the atol side of the bound counts
+    near = 0.0
+    for D in (64, 128):
+        B, H, Hkv, T = 1, 8, 2, 256
+        q = (0.5 * torch.randn((B, H, T, D), generator=g)).to(dev)
+        k = torch.randn((B, Hkv, T, D), generator=g).to(dev)
+        signs = torch.tensor([1.0, -1.0]).repeat(T // 2)
+        v = torch.stack([signs[torch.randperm(T, generator=g)]
+                         for _ in range(B * Hkv * D)])
+        v = v.reshape(B, Hkv, D, T).transpose(2, 3).contiguous().to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+                _flash_compare(fa, qd, kd, vd, causal, worst,
+                               f"near cancellation D={D} {dtype} "
+                               f"causal={causal}")
+                out = fa.flash_attention_plain(qd, kd, vd, causal=causal)
+                near = max(near, out.float().abs().median().item())
+                n += 1
+    log(f"[kernel-fa] tile-edge and near-cancellation cases within "
+        f"tolerance (bf16 tiles {tiles}; median |output| near cancellation "
+        f"at most {near:.3g})")
     for name, B, H, Hkv, T, D in FA_SERVED:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((B, H, T, D), generator=g).to(dtype).to(dev)
@@ -720,20 +867,22 @@ def phase_times_quant(qm, dev):
         x, w = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
         ws = (torch.rand(N, generator=g) * 0.01 + 1e-4).to(dev)
         xs = torch.tensor(0.0123, dtype=torch.float32, device=dev)
-        ms = cuda_ms(lambda: qm.quant_matmul(x, w, 0.0123, ws))
+        ms = graph_ms(lambda: qm.quant_matmul(x, w, 0.0123, ws))
+        eager_ms = cuda_ms(lambda: qm.quant_matmul(x, w, 0.0123, ws))
         plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, w, 0.0123, ws),
                            reps=3, warmup=1)
 
         def library():
             return torch._int_mm(x, w).to(torch.float32) * xs * ws[None, :]
-        lib_ms = cuda_ms(library)
+        lib_ms = graph_ms(library)
         if not bits_equal(library(), qm.quant_matmul(x, w, 0.0123, ws)):
             raise AssertionError(f"torch._int_mm yardstick disagrees at {name}")
         b = _bound(M * K + K * N + 4 * N + 4 * M * N, 2 * M * N * K,
                    H100_INT8_OPS_S)
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, **b))
-        log(f"[time-qm] {name} {M}x{K}x{N}: kernel {ms:.4f} ms, plain "
+        log(f"[time-qm] {name} {M}x{K}x{N}: kernel {ms:.4f} ms (eager "
+            f"{eager_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, torch._int_mm + epilogue {lib_ms:.4f} ms, "
             f"bound {b['bound_ms']:.5f} ms ("
             f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
@@ -750,13 +899,14 @@ def phase_times_flash(fa, dev):
         q = torch.randn((B, H, T, D), generator=g).to(torch.bfloat16).to(dev)
         k = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
         v = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
+        ms = graph_ms(lambda: fa.flash_attention(q, k, v))
+        eager_ms = cuda_ms(lambda: fa.flash_attention(q, k, v))
         plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v),
                            reps=3, warmup=1)
         kr = k.repeat_interleave(H // Hkv, dim=1)
         vr = v.repeat_interleave(H // Hkv, dim=1)
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = cuda_ms(lambda: sdpa(q, kr, vr, is_causal=True))
+        lib_ms = graph_ms(lambda: sdpa(q, kr, vr, is_causal=True))
         lib_diff = (sdpa(q, kr, vr, is_causal=True).double()
                     - fa.flash_attention(q, k, v).double()).abs().max().item()
         if lib_diff > FA_SDPA_TOL:
@@ -768,10 +918,60 @@ def phase_times_flash(fa, dev):
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, **b))
         log(f"[time-fa] {name} (B,H,Hkv,T,D)={B, H, Hkv, T, D} bf16 causal: "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
+            f"kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
             f"ms (max diff to the kernel {lib_diff:.3g}), bound "
             f"{b['bound_ms']:.5f} ms ("
             f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
+    return rows
+
+
+# the 4-bit PTQ sites (M x K x N, a 512-token prompt): bitserial_linear
+# runs them through bitserial_matmul with signed 4-bit planes, int8
+# activations and the float epilogue
+PTQ4_SHAPES = [("wq/wo", 512, 3584, 3584), ("wk/wv", 512, 3584, 512),
+               ("wi/wg", 512, 3584, 18944), ("mlp wo", 512, 18944, 3584)]
+
+
+def phase_times_ptq4(bsm, dev):
+    """``bitserial_matmul`` at PTQ4_SHAPES: kernel (graph replay), plain
+    version, and ``torch.matmul`` on float64 copies of x and the decoded
+    4-bit weights, beside the bound.  Printed on lines of their own; not
+    part of the kernels line's sums."""
+    g = torch.Generator().manual_seed(10)
+    rows = []
+    for name, M, K, N in PTQ4_SHAPES:
+        x = _int8(g, (M, K), dev)
+        planes = torch.randint(0, 16, (K, N), generator=g).to(torch.uint8)
+        planes = planes.to(dev)
+        ws = (torch.rand(N, generator=g) * 0.01 + 1e-4).to(dev)
+        kw = dict(n_bits=4, signed=True, out_dtype=torch.float32)
+        ms = graph_ms(lambda: bsm.bitserial_matmul(x, planes, 0.0123, ws,
+                                                   **kw))
+        plain_ms = cuda_ms(lambda: bsm.bitserial_matmul_plain(
+            x, planes, 0.0123, ws, **kw), reps=3, warmup=1)
+        w = planes.to(torch.int64)
+        xf, wf = x.double(), ((w & 7) - (w & 8)).double()
+        lib_ms = graph_ms(lambda: torch.matmul(xf, wf))
+        got = bsm.bitserial_matmul(x, planes, n_bits=4, signed=True,
+                                   out_dtype=torch.int32)
+        if not torch.equal(torch.matmul(xf, wf).to(torch.int64),
+                           got.to(torch.int64)):
+            raise AssertionError(f"torch.matmul yardstick disagrees at "
+                                 f"{name}")
+        b = _bound(M * K + K * N + 4 * N + 4 * M * N, 2 * M * N * K,
+                   H100_INT8_OPS_S)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **b))
+        log(f"[time-ptq4] {name} {M}x{K}x{N} signed 4-bit planes, float "
+            f"epilogue (split {bsm.split_k(M, N, K)[0]}): kernel {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, torch.matmul f64 {lib_ms:.4f} ms, "
+            f"bound {b['bound_ms']:.5f} ms ("
+            f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
+    log(f"[time-ptq4] sums (not in the kernels line): kernel "
+        f"{sum(r['ms'] for r in rows):.4f} ms, torch.matmul f64 "
+        f"{sum(r['library_ms'] for r in rows):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rows):.5f} ms")
     return rows
 
 
@@ -816,9 +1016,24 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
         decode_logits.append(out[0].clone())
         return out
 
+    real_fa = ops.flash_attention
+    fa_events = []
+
+    def timed_flash(*a, **k):
+        # CUDA events around each served attention call: its device time,
+        # with no synchronization added to the run
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_fa(*a, **k)
+        stop.record()
+        fa_events.append((start, stop))
+        return out
+
     for i, p in enumerate(prompts):
         engine.submit(serve.Request(rid=i, prompt=p, max_tokens=LM_NEW_TOKENS))
     transformer.prefill, transformer.decode_step = prefill, decode_step
+    ops.flash_attention = timed_flash
     fa.flash_attention.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -828,8 +1043,10 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
         torch.cuda.synchronize()
     finally:
         transformer.prefill, transformer.decode_step = real_prefill, real_decode
+        ops.flash_attention = real_fa
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
+    fa_ms = sum(a.elapsed_time(b) for a, b in fa_events)
     peak = torch.cuda.max_memory_allocated(dev)
     n_tokens = sum(len(r.out) for r in done)
     decode_wall = wall - walls["prefill"]
@@ -841,7 +1058,9 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
         f"decode {decode_wall:.3f} s for {n_tokens - len(done)} tokens in "
         f"{engine.steps} steps ({(n_tokens - len(done)) / decode_wall:.1f} "
         f"tok/s); peak device memory {peak / 2**30:.2f} GiB; "
-        f"flash_attention launches {launches}")
+        f"flash_attention launches {launches}, their device time "
+        f"{fa_ms:.3f} ms ({100 * fa_ms / 1e3 / walls['prefill']:.2f}% of "
+        f"the prefill wall)")
     if len(done) != len(prompts) or engine.failed:
         raise AssertionError(f"served {len(done)} of {len(prompts)}: "
                              f"{engine.errors}")
@@ -853,7 +1072,6 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
                              f"want {cfg.n_layers * len(prompts)}")
     agree_total, near_total, worst_diff = 0, 0, 0.0
     worst_fa = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    real_fa = ops.flash_attention
     for r in sorted(done, key=lambda r: r.rid):
         toks = torch.as_tensor(prompts[r.rid], device=dev)[None]
 
@@ -1152,6 +1370,9 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+    log(f"[build] flash_attention tiles (query rows, keys, K/V ring depth): "
+        f"bf16 {fa.kernel_tiles(torch.bfloat16)}, float32 "
+        f"{fa.kernel_tiles(torch.float32)}")
     worst = timed("kernel", phase_kernel, bsm, dev)
     worst_a4 = timed("kernel-a4", phase_kernel_a4, bsm, dev)
     worst_qm = timed("kernel-qm", phase_quant_kernel, qm, dev)
@@ -1193,6 +1414,7 @@ def main() -> int:
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)
     rows_fa = timed("times-fa", phase_times_flash, fa, dev)
+    timed("times-ptq4", phase_times_ptq4, bsm, dev)
     kernels = [
         _kernel_entry("bitserial_matmul",
                       "src/repro_torch/csrc/bitserial_gemm.cu",

@@ -16,7 +16,11 @@ that plane's contribution on that block.
 
 The wrappers launch the CUDA kernels in ``src/repro_torch/csrc/``
 (``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``) for CUDA tensors and run
-the plain versions for CPU tensors.  They never fall back on a CUDA
+the plain versions for CPU tensors.  ``bitserial_gemm.cu`` decodes each
+weight tile once (plane weights and mask folded into one 8-bit weight per
+element) and runs one int8 tensor-core product; where its output tiles
+cannot fill the card, :func:`split_k` splits K and the splits add into an
+int32 workspace the wrapper allocates.  They never fall back on a CUDA
 tensor: a kernel that does not build, or a launch that fails, raises
 :class:`KernelError`, which the serving engine's recovery ladder re-raises.
 Each source is compiled with ``nvcc`` on first use into ``build/kernels/``
@@ -33,11 +37,38 @@ from repro_torch.kernels import cuda_build as _cb
 __all__ = ["KernelError", "bitserial_matmul", "bitserial_matmul_plain",
            "bitserial_matmul_a4", "bitserial_matmul_a4_plain",
            "pack_activation_nibbles", "unpack_activation_nibbles",
-           "plane_block_mask"]
+           "plane_block_mask", "split_k"]
 
 DEFAULT_BK = 256  # the reference kernels' block sizes: the mask granularity
 DEFAULT_BN = 128
 DEFAULT_BK2 = DEFAULT_BK // 2  # packed activation bytes per a4 K-block
+
+# bitserial_gemm.cu's block tile (rows, columns, K step) and the card it
+# is sized for (an H100 has 132 SMs)
+TILE_M, TILE_N, TILE_K = 128, 64, 64
+CARD_SMS = 132
+SPLIT_TARGET_BLOCKS = 2 * CARD_SMS  # blocks a split-K launch aims for
+SPLIT_MIN_STEPS = 2  # K steps each split walks at least
+
+
+def split_k(M: int, N: int, K: int) -> tuple[int, int]:
+    """``(splits, k_split)``: the number of K ranges ``bitserial_matmul``
+    launches for an ``[M, K] x [K, N]`` product and the rows of each (a
+    multiple of the kernel's K step; the last range ends at K).  K is split
+    when the output tiles cannot fill the card, and whenever ``M <= 64``
+    with ``K >= 1024`` (a few rows over a long K), into enough ranges for
+    about :data:`SPLIT_TARGET_BLOCKS` blocks, each walking at least
+    :data:`SPLIT_MIN_STEPS` steps; none is empty."""
+    steps = -(-K // TILE_K)
+    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    want = 1
+    if tiles and (tiles < CARD_SMS or (M <= 64 and K >= 1024)):
+        want = max(2, -(-SPLIT_TARGET_BLOCKS // tiles))
+    want = min(want, steps // SPLIT_MIN_STEPS)
+    if want <= 1:
+        return 1, K
+    per = -(-steps // want)
+    return -(-steps // per), per * TILE_K
 
 
 def plane_block_mask(planes: torch.Tensor, n_bits: int,
@@ -160,8 +191,8 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
                      signed: bool = True, block_k: int = DEFAULT_BK,
                      block_n: int = DEFAULT_BN) -> torch.Tensor:
     """Bit-serial GEMM (see the module docstring).  CUDA tensors launch the
-    Hopper kernel (and add one to ``bitserial_matmul.launches``); CPU
-    tensors run :func:`bitserial_matmul_plain`."""
+    Hopper kernel (and add one to ``bitserial_matmul.launches``, split K or
+    not); CPU tensors run :func:`bitserial_matmul_plain`."""
     if x.device.type == "cpu" and planes.device.type == "cpu":
         return bitserial_matmul_plain(
             x, planes, x_scale, w_scale, plane_mask, n_bits=n_bits,
@@ -174,7 +205,16 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
                      ("plane_mask", plane_mask)], w_scale, plane_mask, dev)
     if out_dtype == torch.float32 and w_scale is None:
         w_scale = torch.ones(N, dtype=torch.float32, device=dev)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
+    if -(-N // TILE_N) > 65535:
+        raise ValueError(f"N={N} exceeds the launch range")
+    splits, k_split = split_k(M, N, K)
+    workspace = None
+    if splits > 1 and M and N:
+        # the splits add into zeroed int32 sums: the output itself for an
+        # int32 result, else a workspace the float epilogue reads
+        workspace = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    out = (workspace if workspace is not None and out_dtype == torch.int32
+           else torch.empty((M, N), dtype=out_dtype, device=dev))
     if M == 0 or N == 0:
         return out
     lib = _cb.build("bitserial_gemm")
@@ -186,7 +226,8 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
             bk, bn, nk, nn,
             w_scale.data_ptr() if w_scale is not None else None,
             float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
-            M, N, K, n_bits, int(signed), _cb.launch_stream(dev))
+            workspace.data_ptr() if workspace is not None else None,
+            M, N, K, k_split, n_bits, int(signed), _cb.launch_stream(dev))
     _cb.raise_on_error(err, "bitserial_gemm")
     bitserial_matmul.launches += 1
     return out

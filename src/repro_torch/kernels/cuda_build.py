@@ -32,8 +32,11 @@ _P, _I, _F = _C.c_void_p, _C.c_int, _C.c_float
 # kernel name -> the ctypes signature of its launcher (the source is
 # csrc/<name>.cu and the launcher is the extern "C" function <name>)
 _SIGNATURES = {
-    "bitserial_gemm": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _I, _I,
-                       _I, _I, _I, _P],
+    # x, x_signed, planes, mask, mask_bk, mask_bn, mask_nk, mask_nn, w_scale,
+    # x_scale, out, out_float, workspace, M, N, K, k_split, n_bits,
+    # signed_planes, stream
+    "bitserial_gemm": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _P, _I,
+                       _I, _I, _I, _I, _I, _P],
     "bitserial_gemm_a4": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _I,
                           _I, _I, _I, _I, _I, _P],
     # x, w, x_scale, w_scale, bias, out, M, N, K, stream

@@ -12,20 +12,25 @@ the TPU kernel, any Tq and Tk are taken (ragged tiles are masked).
 
 :func:`flash_attention` launches ``src/repro_torch/csrc/flash_attention.cu``
 for CUDA tensors (and adds one to ``flash_attention.launches``) and runs
-:func:`flash_attention_plain` for CPU tensors.  It never falls back on a
-CUDA tensor: a kernel that does not build, or a launch that fails, raises
+:func:`flash_attention_plain` for CPU tensors.  bfloat16 runs on the
+tensor cores: f32-accumulated products, with p split into two bf16 terms
+``hi + lo`` for P.V so that the TPU kernel's f32 p is kept to about 2^-17
+(:func:`kernel_tiles` reports the tiles); float32 runs on the CUDA cores.
+It never falls back on a CUDA tensor: a kernel that does not build, or a
+launch that fails, raises
 :class:`~repro_torch.kernels.cuda_build.KernelError`.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from repro_torch.kernels import cuda_build as _cb
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF",
-           "DEFAULT_BQ", "DEFAULT_BK"]
+__all__ = ["flash_attention", "flash_attention_plain", "kernel_tiles",
+           "NEG_INF", "DEFAULT_BQ", "DEFAULT_BK"]
 
 NEG_INF = -1e30
 DEFAULT_BQ = 64  # the CUDA kernel's tiles
@@ -107,10 +112,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if D not in HEAD_DIMS:
         raise ValueError(f"head size {D} is not one the kernel is built for "
                          f"{HEAD_DIMS}")
-    if B * H > 65535 or max(Tq, Tk) * D >= 1 << 31:
+    if (B * H > 65535 or -(-Tq // DEFAULT_BQ) > 65535
+            or max(Tq, Tk) * D >= 1 << 31):
         raise ValueError(f"shape {tuple(q.shape)} exceeds the launch range")
     dev = q.device
     _cb.check_operands([("q", q), ("k", k), ("v", v)], dev)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                             f"kernel copies rows 16 bytes at a time)")
     out = torch.empty_like(q)
     if B * H == 0 or Tq == 0:
         return out
@@ -128,3 +138,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+
+
+def kernel_tiles(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The tiles the CUDA kernel runs for ``dtype``, as its source reports
+    them: query rows per block, keys per KV tile, and the depth of the K/V
+    ring in shared memory (1: loaded synchronously).  Builds the kernel."""
+    fn = _cb.build("flash_attention").flash_attention_tiles
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    tiles = (ctypes.c_int * 3)()
+    fn(int(dtype == torch.bfloat16), tiles)
+    return dict(bq=tiles[0], bkv=tiles[1], stages=tiles[2])
