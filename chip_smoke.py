@@ -17,11 +17,16 @@ results go to lines before the last; each phase prints its wall):
    shapes (M 1, 2, 17; K 2048, 2593; all four x/plane signedness pairs),
    at int32 sums that wrap (|sum| < 2^53, where the plain version's
    float64 products are exact) and at the full-width Inception shapes,
-   printing each shape's split-K factor; the W4A4 kernel at
-   random ragged shapes (n_bits 1..4, odd and even K, signed and unsigned,
-   masked or not, both epilogues) and at the full-width 4-bit shapes; the
-   W8A8 ``quant_matmul`` kernel at random ragged shapes (bias or none) and
-   at the LM's linear shapes; all three bit-equal.  ``flash_attention`` at
+   printing each shape's split-K factor; the W4A4 kernel at random ragged
+   shapes (n_bits 1..4, odd and even K, signed and unsigned, masked or
+   not, both epilogues), at split-K shapes (M 1, 2, 17; K 2048, 2593; all
+   four nibble/plane signedness pairs, the mixed ones through the launch
+   helper against the 8-bit plain version on the widened nibbles; masked
+   too), at rows of K2 bytes off a 16-byte boundary, at K < 2*K2 - 1, and
+   at the full-width 4-bit shapes; the W8A8 ``quant_matmul`` kernel at
+   random ragged shapes, at split-K shapes (M 1..65 at K = 3584), at the
+   LM's linear shapes and at the PTQ head (4x3584x152064), each with bias
+   and without; all three bit-equal.  ``flash_attention`` at
    random ragged (B, H, Hkv, Tq, Tk, D), causal and not, at Tq and Tk
    ragged against the bf16 kernel's query and KV tiles on both sides, at
    every head size, at B*H = 224, with outputs near cancellation (V whose
@@ -77,9 +82,11 @@ results go to lines before the last; each phase prints its wall):
     flash_attention) as device time, 20 calls captured in one CUDA graph
     and replayed between CUDA events (the host's launch overhead is
     printed apart as the eager time), and the plain version eagerly,
-    beside the bound; then ``bitserial_matmul`` at the 4-bit PTQ sites'
-    shapes (signed planes, n_bits 4, float epilogue) on lines of their
-    own, outside the kernels line's sums;
+    beside the bound; then ``quant_matmul`` at the PTQ head and
+    ``bitserial_matmul`` at the 4-bit PTQ sites' shapes (signed planes,
+    n_bits 4, float epilogue) on lines of their own, outside the kernels
+    line's sums; then each kernel's registers a thread and spill bytes
+    from its build report;
 11. one JSON line listing the four kernels, then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -88,6 +95,7 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -333,6 +341,53 @@ def phase_kernel_a4(bsm, dev) -> float:
             worst = max(worst, diff)
     log(f"[kernel-a4] {len(cases) * 2} random cases equal to the plain "
         f"version")
+    # split-K shapes with all four x/plane signedness pairs, the split
+    # shapes masked too; rows of K2 bytes off a 16-byte boundary outside
+    # the main shapes; K < 2*K2 - 1 (nibbles past K meet no weight row)
+    n = 0
+    splits = [(M, K, N) for M in (1, 2, 17) for K in (2048, 2593)
+              for N in (1001, 300)]
+    edges = [(333, 200, 100, 130), (129, 214, 107, 65), (7, 301, 200, 77),
+             (2, 1500, 1300, 1001), (130, 1000, 517, 70)]
+    cases = [(M, K, (K + 1) // 2, N) for M, K, N in splits] + edges
+    for i, (M, K, K2, N) in enumerate(cases):
+        n_bits = 4 - i % 4
+        xp = torch.randint(0, 256, (M, K2), generator=g).to(torch.uint8)
+        xp = xp.to(dev)
+        planes = torch.randint(0, 1 << n_bits, (K, N), generator=g,
+                               dtype=torch.int64).to(torch.uint8).to(dev)
+        w_scale = (torch.rand(N, generator=g) + 0.5).to(dev)
+        what = (f"M,K,K2,N={M, K, K2, N} n_bits={n_bits} split="
+                f"{bsm.split_k(M, N, K)[0]}")
+        for x_signed in (False, True):
+            for signed in (False, True):
+                worst = max(worst, _a4_compare(
+                    bsm, xp, planes, K, x_signed, signed, w_scale, n_bits,
+                    f"{what} x_signed={x_signed} signed={signed}"))
+                n += 2
+            if (M, K, N) in splits:
+                full = bsm.plane_block_mask(planes, n_bits, 48, 80)
+                drop = torch.rand(full.shape, generator=g) < 0.3
+                mask = torch.where(drop.to(dev), torch.zeros_like(full),
+                                   full)
+                kw = dict(n_bits=n_bits, signed=x_signed, block_k2=24,
+                          block_n=80)
+                for out_dtype in (torch.int32, torch.float32):
+                    got = bsm.bitserial_matmul_a4(xp, planes, 0.37, w_scale,
+                                                  mask, out_dtype=out_dtype,
+                                                  **kw)
+                    want = bsm.bitserial_matmul_a4_plain(
+                        xp, planes, 0.37, w_scale, mask, out_dtype=out_dtype,
+                        **kw)
+                    torch.cuda.synchronize()
+                    if not bits_equal(got, want):
+                        raise AssertionError(f"a4 kernel != plain at {what} "
+                                             f"signed={x_signed} masked")
+                    n += 1
+    log(f"[kernel-a4] {n} cases split along K (splits "
+        f"{sorted({bsm.split_k(M, N, K)[0] for M, K, N in splits})}, all "
+        f"four signedness pairs), with K2 off a 16-byte boundary or K < "
+        f"2*K2 - 1, equal to the plain version")
     for name, M, K, N in MAIN_SHAPES:
         xp = torch.randint(0, 256, (M, (K + 1) // 2), generator=g)
         xp = xp.to(torch.uint8).to(dev)
@@ -344,7 +399,39 @@ def phase_kernel_a4(bsm, dev) -> float:
         if not bits_equal(got, want):
             raise AssertionError(f"a4 kernel != plain at {name} {M}x{K}x{N}")
         log(f"[kernel-a4] {name} {M}x{K}x{N}: int32 equal to the plain "
-            f"version")
+            f"version (split {bsm.split_k(M, N, K)[0]})")
+    return worst
+
+
+def _a4_compare(bsm, xp, planes, K, x_signed, signed, w_scale, n_bits, what):
+    """Hold the W4A4 kernel with nibble signedness ``x_signed`` and plane
+    signedness ``signed`` bit-equal to the plain version, both epilogues;
+    returns the largest absolute difference.  ``bitserial_matmul_a4``
+    passes one flag for both, so a mixed pair goes through the launcher
+    helper and is held against the 8-bit plain version on the widened
+    nibbles (the same function)."""
+    worst = 0.0
+    b = xp.to(torch.int64)
+    lo, hi = b & 0xF, b >> 4
+    if x_signed:
+        lo, hi = (lo ^ 8) - 8, (hi ^ 8) - 8
+    x8 = torch.stack([lo, hi], dim=-1).reshape(b.shape[0], -1)[:, :K]
+    x8 = x8.to(torch.int8 if x_signed else torch.uint8).contiguous()
+    for out_dtype in (torch.int32, torch.float32):
+        kw = dict(n_bits=n_bits, out_dtype=out_dtype, signed=signed)
+        if x_signed == signed:
+            got = bsm.bitserial_matmul_a4(xp, planes, 0.37, w_scale, **kw)
+        else:
+            got = bsm._launch_a4(xp, planes, 0.37, w_scale, None,
+                                 x_signed=x_signed, block_k2=bsm.DEFAULT_BK2,
+                                 block_n=bsm.DEFAULT_BN, **kw)
+        want = bsm.bitserial_matmul_plain(x8, planes, 0.37, w_scale, **kw)
+        torch.cuda.synchronize()
+        diff = (got.double() - want.double()).abs().max().item()
+        if not bits_equal(got, want):
+            raise AssertionError(f"a4 kernel != plain at {what} out="
+                                 f"{out_dtype}: max diff {diff}")
+        worst = max(worst, diff)
     return worst
 
 
@@ -708,6 +795,9 @@ LM_LOGIT_TOL = 0.125
 # served prompt, checked, and of the 512- and 2048-token prompts, timed
 QM_SHAPES = [("wq/wo", 512, 3584, 3584), ("wk/wv", 512, 3584, 512),
              ("wi/wg", 512, 3584, 18944), ("mlp wo", 512, 18944, 3584)]
+# the PTQ head: the 4 prompts' last positions against the 152064-wide
+# vocabulary; timed on a line of its own, outside the QM_SHAPES sums
+QM_HEAD = ("head", 4, 3584, 152064)
 FA_SERVED = [(f"T{T}", 1, 28, 4, T, 128) for T in LM_PROMPTS]
 FA_SHAPES = [s for s in FA_SERVED if s[0] in ("T512", "T2048")]
 H100_BF16_FLOPS_S = 989e12  # dense bf16 tensor-core rate, H100 SXM data sheet
@@ -728,13 +818,17 @@ def _int8(g, shape, dev):
 
 def phase_quant_kernel(qm, dev) -> float:
     """``quant_matmul`` against its plain version at random ragged shapes
-    (K not a multiple of 4 included, bias or none) and at QM_SHAPES:
-    bit-equal, since both round each epilogue step in the same order."""
+    (K not a multiple of 4 included), at split-K shapes (a few rows at
+    K = 3584, both tiles), at QM_SHAPES and at the head (QM_HEAD), each
+    with bias and without: bit-equal, since both round each epilogue step
+    in the same order."""
     g = torch.Generator().manual_seed(6)
     cases = [(1, 1, 1), (7, 33, 5), (65, 31, 129), (130, 257, 67),
              (64, 64, 64), (3, 600, 200), (257, 1000, 130), (100, 522, 300),
              (513, 3584, 77)]
-    cases += [(M, K, N) for _, M, K, N in QM_SHAPES]
+    split = [(M, 3584, N) for M in (1, 2, 5, 16, 17, 65)
+             for N in (512, 1001, 3584)]
+    cases += split + [(M, K, N) for _, M, K, N in QM_SHAPES + [QM_HEAD]]
     n = 0
     for M, K, N in cases:
         x, w = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
@@ -750,8 +844,11 @@ def phase_quant_kernel(qm, dev) -> float:
                                      f"{M, K, N} bias={b is not None}: max "
                                      f"diff {diff}")
             n += 1
-    log(f"[kernel-qm] {n} cases (random ragged and the slice's shapes) "
-        f"bit-equal to the plain version")
+        del x, w, want, got
+    log(f"[kernel-qm] {n} cases (random ragged, split along K in "
+        f"splits {sorted({qm.quant_split_k(M, N, K)[0] for M, K, N in split})}"
+        f", the slice's shapes and the head {QM_HEAD[1:]}) bit-equal to the "
+        f"plain version")
     return 0.0
 
 
@@ -860,10 +957,12 @@ def _bound(nbytes: float, ops: float, peak: float) -> dict:
 
 def phase_times_quant(qm, dev):
     """``quant_matmul`` at QM_SHAPES (no bias, as the PTQ linears call it):
-    kernel, plain version, and ``torch._int_mm`` plus the same epilogue."""
+    kernel, plain version, and ``torch._int_mm`` plus the same epilogue;
+    then the head (QM_HEAD) on a line of its own, whose ``torch._int_mm``
+    runs on x padded to 32 rows (it takes more than 16)."""
     g = torch.Generator().manual_seed(8)
     rows = []
-    for name, M, K, N in QM_SHAPES:
+    for name, M, K, N in QM_SHAPES + [QM_HEAD]:
         x, w = _int8(g, (M, K), dev), _int8(g, (K, N), dev)
         ws = (torch.rand(N, generator=g) * 0.01 + 1e-4).to(dev)
         xs = torch.tensor(0.0123, dtype=torch.float32, device=dev)
@@ -871,21 +970,30 @@ def phase_times_quant(qm, dev):
         eager_ms = cuda_ms(lambda: qm.quant_matmul(x, w, 0.0123, ws))
         plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, w, 0.0123, ws),
                            reps=3, warmup=1)
+        xl = x if M > 16 else torch.cat([x, x.new_zeros((32 - M, K))])
 
         def library():
-            return torch._int_mm(x, w).to(torch.float32) * xs * ws[None, :]
+            acc = torch._int_mm(xl, w)[:M]
+            return acc.to(torch.float32) * xs * ws[None, :]
         lib_ms = graph_ms(library)
         if not bits_equal(library(), qm.quant_matmul(x, w, 0.0123, ws)):
             raise AssertionError(f"torch._int_mm yardstick disagrees at {name}")
         b = _bound(M * K + K * N + 4 * N + 4 * M * N, 2 * M * N * K,
                    H100_INT8_OPS_S)
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, **b))
-        log(f"[time-qm] {name} {M}x{K}x{N}: kernel {ms:.4f} ms (eager "
+        splits = qm.quant_split_k(M, N, K)[0]
+        row = dict(name=name, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   **b)
+        log(f"[time-qm] {name} {M}x{K}x{N} (split {splits}): kernel "
+            f"{ms:.4f} ms (eager "
             f"{eager_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, torch._int_mm + epilogue {lib_ms:.4f} ms, "
             f"bound {b['bound_ms']:.5f} ms ("
-            f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})")
+            f"{'bytes' if b['bytes_ms'] > b['ops_ms'] else 'operations'})"
+            + (" (own line, not in the kernels line's sums)"
+               if name == QM_HEAD[0] else ""))
+        if name != QM_HEAD[0]:
+            rows.append(row)
+        del x, w
     return rows
 
 
@@ -1311,6 +1419,23 @@ def phase_lm_ptq(transformer, layers, ptq, ops, qm, bsm, cfg, params,
     return launches
 
 
+def phase_registers(cuda_build):
+    """Each kernel's registers a thread and spill bytes over its entry
+    functions (template instantiations), from the build's ``-Xptxas -v``
+    report."""
+    for name in ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
+                 "flash_attention"):
+        report = cuda_build.build_log(name)
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
+        spills = [int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", report)]
+        if not regs:
+            raise AssertionError(f"{name}: no register report in the build "
+                                 f"log")
+        log(f"[time] {name}: {len(regs)} entry functions, {min(regs)}-"
+            f"{max(regs)} registers a thread, {sum(spills)} bytes spilled")
+
+
 def _kernel_entry(name, source, replaces, launches, worst, rows):
     """One entry of the kernels line; times and bound summed over the
     kernel's shapes (``rows``)."""
@@ -1415,6 +1540,7 @@ def main() -> int:
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)
     rows_fa = timed("times-fa", phase_times_flash, fa, dev)
     timed("times-ptq4", phase_times_ptq4, bsm, dev)
+    phase_registers(cuda_build)
     kernels = [
         _kernel_entry("bitserial_matmul",
                       "src/repro_torch/csrc/bitserial_gemm.cu",

@@ -7,8 +7,8 @@
 // activations per byte, the even element in the low nibble (unsigned, or
 // two's complement over 4 bits when `x_signed`: ((b & 0xF) ^ 8) - 8);
 // planes [K, N] uint8 byte-packed with n_bits <= 4 (bit b is plane b),
-// K <= 2 * K2 (a dangling nibble of an odd K meets a zero weight row); an
-// optional per-(plane, K-block, N-block) occupancy mask whose K-blocks span
+// K <= 2 * K2 (nibbles at k >= K meet zero weight rows); an optional
+// per-(plane, K-block, N-block) occupancy mask whose K-blocks span
 // `mask_bk` = 2 * bk2 weight rows; the exact int32 accumulator or the float
 // epilogue (f32(acc) * x_scale) * w_scale[n].  Plane weights are +2^b, the
 // MSB plane -2^(n-1) when `signed_planes` is set.  Integer arithmetic wraps
@@ -16,178 +16,80 @@
 // splits each plane into two half-K products (even nibbles against even
 // rows, odd against odd); their sum is the full-K product computed here.
 //
-// What bounds it on the H100: it moves M*K2 + K*N + 4*M*N bytes
-// (3.35 TB/s); the function is one GEMM of 2*M*N*K operations (the plane
-// weights fold into the decoded weights), and Hopper has no 4-bit tensor
-// core path faster than int8 (1,979 TOP/s).  The design is the 8-bit
-// kernel's (bitserial_gemm.cu): one thread block owns a 64x64 output tile
-// and walks K in 32-element steps.  Each step stages 16 packed bytes per
-// row of x, unpacks the two nibbles in shared memory, and stages the
-// masked weight bytes; edges (M, N, odd K) are masked on load and store,
-// so nothing is padded in device memory.  Each thread keeps a 4x4 int32
-// accumulator in registers, and a plane whose staged tile holds no set bit
-// is skipped for that step.  CUDA-core integer pipes only; tensor cores
-// (wgmma) and TMA staging are later work.
-#include <cstdint>
-#include <cuda_runtime.h>
+// What bounds it on the H100 (SXM data-sheet peaks, 700 W power limit): it
+// moves M*K2 + K*N + 4*M*N bytes (3.35 TB/s) and is one GEMM of 2*M*N*K
+// operations (1,979 TOP/s int8): the plane weights and the mask fold into
+// one decoded weight per element, which fits u8 for unsigned planes and s8
+// for signed ones, and each nibble widens to a u8 or s8 operand.  Hopper's
+// mma.sync with .u4/.s4 operands is no faster than int8, so the nibbles are
+// widened.  Every main-path shape is bytes-bound.
+//
+// Design: the 8-bit kernel's (bitserial_gemm.cu), in the main loop the
+// int8 kernels share (int8_mma.cuh): 128x64 tiles of 4 warps on
+// mma.sync.m16n8k32, a three-stage cp.async ring, each packed weight tile
+// decoded once into the transposed weight tile, ldmatrix fragments, int32
+// sums that wrap, and split-K into a zeroed int32 workspace by atomic adds
+// where the tiles cannot fill the card.  Only the x side differs: each
+// 64-wide K step stages the 32 packed bytes of each row, half the 8-bit
+// kernel's x traffic, as the 16-byte aligned window around them (so K2 =
+// 360 at Conv2d_4a, whose rows start 8 bytes off a 16-byte boundary,
+// still goes by cp.async), and the decode pass widens them into an [m][k]
+// byte tile in shared memory, each nibble once per block, from which the
+// fragments load as in the 8-bit kernel.
+#include "int8_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;        // unpacked K elements per step
-constexpr int BK2 = BK / 2;   // packed activation bytes per step
-constexpr int TM = 4;  // outputs per thread along M
-constexpr int TN = 4;  // outputs per thread along N
-constexpr int THREADS = (BM / TM) * (BN / TN);  // 256
+using int8_mma::Params;
+using Launch = cudaError_t (*)(const Params&, cudaStream_t);
 
-__global__ void __launch_bounds__(THREADS)
-bitserial_gemm_a4_kernel(const uint8_t* __restrict__ x, int x_signed,
-                         const uint8_t* __restrict__ planes,
-                         const int8_t* __restrict__ mask, int mask_bk,
-                         int mask_bn, int mask_nk, int mask_nn,
-                         const float* __restrict__ w_scale, float x_scale,
-                         void* __restrict__ out, int out_float, int M, int N,
-                         int K, int K2, int n_bits, int signed_planes) {
-  __shared__ int32_t xs[BK][BM];   // unpacked x tile, transposed: xs[k][m]
-  __shared__ uint8_t ps[BK][BN];   // masked packed weight bytes
-  __shared__ unsigned int s_or[2];  // OR of the staged bytes, per K step
-
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);  // N direction
-  const int ty = tid / (BN / TN);  // M direction
-  const int lane = tid & 31;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.y) * BN;
-  const unsigned int all_planes = (1u << n_bits) - 1u;
-
-  uint32_t acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0u;
-
-  if (tid < 2) s_or[tid] = 0u;
-  __syncthreads();
-
-  int step = 0;
-  for (int64_t k0 = 0; k0 < K; k0 += BK, ++step) {
-    // stage the packed x bytes and unpack both nibbles (zero outside M/K2)
-    const int64_t kb0 = k0 / 2;
-    for (int e = tid; e < BM * BK2; e += THREADS) {
-      const int mm = e / BK2, kk2 = e % BK2;
-      const int64_t m = m0 + mm, k2 = kb0 + kk2;
-      int32_t lo = 0, hi = 0;
-      if (m < M && k2 < K2) {
-        const int32_t b = x[m * K2 + k2];
-        if (x_signed) {
-          lo = ((b & 0xF) ^ 8) - 8;
-          hi = ((b >> 4) ^ 8) - 8;
-        } else {
-          lo = b & 0xF;
-          hi = b >> 4;
-        }
-      }
-      xs[2 * kk2][mm] = lo;
-      xs[2 * kk2 + 1][mm] = hi;
-    }
-    // stage the packed weight bytes with the occupancy mask applied per
-    // element; rows at or past K (an odd K's dangling row) are zero
-    unsigned int local_or = 0u;
-    for (int e = tid; e < BK * BN; e += THREADS) {
-      const int kk = e / BN, nn = e % BN;
-      const int64_t k = k0 + kk, n = n0 + nn;
-      unsigned int p = 0u;
-      if (k < K && n < N) {
-        unsigned int keep = all_planes;
-        if (mask != nullptr) {
-          keep = 0u;
-          const int kb = static_cast<int>(k / mask_bk);
-          const int nb = static_cast<int>(n / mask_bn);
-          for (int b = 0; b < n_bits; ++b)
-            if (mask[(static_cast<int64_t>(b) * mask_nk + kb) * mask_nn + nb])
-              keep |= 1u << b;
-        }
-        p = planes[k * N + n] & keep;
-      }
-      ps[kk][nn] = static_cast<uint8_t>(p);
-      local_or |= p;
-    }
-    local_or = __reduce_or_sync(0xffffffffu, local_or);
-    if (lane == 0 && local_or) atomicOr(&s_or[step & 1], local_or);
-    __syncthreads();
-    const unsigned int tile_or = s_or[step & 1];
-    // every thread has passed this step's first barrier, so the other
-    // slot (last read in the previous step) is free to clear
-    if (tid == 0) s_or[(step + 1) & 1] = 0u;
-
-    for (int b = 0; b < n_bits; ++b) {
-      if (!((tile_or >> b) & 1u)) continue;  // all-zero plane tile: skipped
-      uint32_t part[TM][TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = 0u;
-#pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        uint32_t a[TM], bit[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-          a[i] = static_cast<uint32_t>(xs[kk][ty + i * (BM / TM)]);
-#pragma unroll
-        for (int j = 0; j < TN; ++j)
-          bit[j] = (static_cast<uint32_t>(ps[kk][tx + j * (BN / TN)]) >> b) & 1u;
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] += a[i] * bit[j];
-      }
-      const uint32_t pw = (signed_planes && b == n_bits - 1)
-                              ? static_cast<uint32_t>(-(1 << b))
-                              : (1u << b);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += pw * part[i][j];
-    }
-    __syncthreads();  // the tiles are rewritten next step
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t m = m0 + ty + i * (BM / TM);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t n = n0 + tx + j * (BN / TN);
-      if (n >= N) continue;
-      const int32_t v = static_cast<int32_t>(acc[i][j]);
-      if (out_float) {
-        const float f = __fmul_rn(__fmul_rn(__int2float_rn(v), x_scale),
-                                  w_scale[n]);
-        static_cast<float*>(out)[m * N + n] = f;
-      } else {
-        static_cast<int32_t*>(out)[m * N + n] = v;
-      }
-    }
-  }
-}
+// [x signed][planes signed][masked]
+template <bool XS, bool WS, bool MASKED>
+constexpr Launch kLaunch = int8_mma::launch<XS, WS, MASKED, true, true, 2, false>;
+constexpr Launch kTable[2][2][2] = {
+    {{kLaunch<false, false, false>, kLaunch<false, false, true>},
+     {kLaunch<false, true, false>, kLaunch<false, true, true>}},
+    {{kLaunch<true, false, false>, kLaunch<true, false, true>},
+     {kLaunch<true, true, false>, kLaunch<true, true, true>}}};
 
 }  // namespace
 
+// `workspace`: null, or a zeroed int32 [M, N] buffer that the K splits of
+// `k_split` weight rows each add into (it may be `out` itself when out is
+// int32).
 extern "C" int bitserial_gemm_a4(const void* x, int x_signed,
                                  const void* planes, const void* mask,
                                  int mask_bk, int mask_bn, int mask_nk,
                                  int mask_nn, const void* w_scale,
                                  float x_scale, void* out, int out_float,
-                                 int M, int N, int K, int K2, int n_bits,
-                                 int signed_planes, void* stream) {
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  bitserial_gemm_a4_kernel<<<grid, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(x), x_signed,
-      static_cast<const uint8_t*>(planes), static_cast<const int8_t*>(mask),
-      mask_bk, mask_bn, mask_nk, mask_nn, static_cast<const float*>(w_scale),
-      x_scale, out, out_float, M, N, K, K2, n_bits, signed_planes);
-  return static_cast<int>(cudaGetLastError());
+                                 void* workspace, int M, int N, int K, int K2,
+                                 int k_split, int n_bits, int signed_planes,
+                                 void* stream) {
+  Params p{};
+  p.x = static_cast<const uint8_t*>(x);
+  p.w = static_cast<const uint8_t*>(planes);
+  p.mask = static_cast<const int8_t*>(mask);
+  p.mask_bk = mask_bk;
+  p.mask_bn = mask_bn;
+  p.mask_nk = mask_nk;
+  p.mask_nn = mask_nn;
+  p.w_scale = static_cast<const float*>(w_scale);
+  p.bias = nullptr;
+  p.x_scale = x_scale;
+  p.out = out;
+  p.out_float = out_float;
+  p.partial = static_cast<uint32_t*>(workspace);
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.xld = K2;
+  p.k_split = workspace != nullptr ? k_split : K;
+  p.n_bits = n_bits;
+  p.x_vec = int8_mma::aligned16(x);
+  p.x_align = !p.x_vec ? 1 : (K2 % 16 == 0 ? 16 : (K2 % 4 == 0 ? 4 : 1));
+  p.w_vec = int8_mma::aligned16(planes);
+  p.w_aligned = p.w_vec && N % 16 == 0;
+  const Launch run =
+      kTable[x_signed != 0][signed_planes != 0][mask != nullptr];
+  return static_cast<int>(run(p, static_cast<cudaStream_t>(stream)));
 }

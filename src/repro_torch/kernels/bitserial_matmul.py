@@ -16,16 +16,18 @@ that plane's contribution on that block.
 
 The wrappers launch the CUDA kernels in ``src/repro_torch/csrc/``
 (``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``) for CUDA tensors and run
-the plain versions for CPU tensors.  ``bitserial_gemm.cu`` decodes each
-weight tile once (plane weights and mask folded into one 8-bit weight per
-element) and runs one int8 tensor-core product; where its output tiles
-cannot fill the card, :func:`split_k` splits K and the splits add into an
-int32 workspace the wrapper allocates.  They never fall back on a CUDA
-tensor: a kernel that does not build, or a launch that fails, raises
-:class:`KernelError`, which the serving engine's recovery ladder re-raises.
-Each source is compiled with ``nvcc`` on first use into ``build/kernels/``
-at the repository root, keyed by the hash of its own text, and loaded
-through ``ctypes`` (:mod:`repro_torch.kernels.cuda_build`).
+the plain versions for CPU tensors.  Both kernels run the int8 tensor-core
+main loop of ``csrc/int8_mma.cuh``: each weight tile is decoded once (plane
+weights and mask folded into one 8-bit weight per element; the W4A4
+kernel also widens the nibbles to bytes) and multiplied once; where the
+output tiles cannot fill the card, :func:`split_k` splits K and the splits
+add into an int32 workspace the wrapper allocates.  They never fall back
+on a CUDA tensor: a kernel that does not build, or a launch that fails,
+raises :class:`KernelError`, which the serving engine's recovery ladder
+re-raises.  Each source is compiled with ``nvcc`` on first use into
+``build/kernels/`` at the repository root, keyed by the hash of its text
+and its headers', and loaded through ``ctypes``
+(:mod:`repro_torch.kernels.cuda_build`).
 """
 from __future__ import annotations
 
@@ -43,24 +45,26 @@ DEFAULT_BK = 256  # the reference kernels' block sizes: the mask granularity
 DEFAULT_BN = 128
 DEFAULT_BK2 = DEFAULT_BK // 2  # packed activation bytes per a4 K-block
 
-# bitserial_gemm.cu's block tile (rows, columns, K step) and the card it
-# is sized for (an H100 has 132 SMs)
+# the block tile (rows, columns, K step) of the int8 kernels' main loop
+# (csrc/int8_mma.cuh; quant_gemm.cu also runs it as 64x128) and the card
+# it is sized for (an H100 has 132 SMs)
 TILE_M, TILE_N, TILE_K = 128, 64, 64
 CARD_SMS = 132
 SPLIT_TARGET_BLOCKS = 2 * CARD_SMS  # blocks a split-K launch aims for
 SPLIT_MIN_STEPS = 2  # K steps each split walks at least
 
 
-def split_k(M: int, N: int, K: int) -> tuple[int, int]:
-    """``(splits, k_split)``: the number of K ranges ``bitserial_matmul``
-    launches for an ``[M, K] x [K, N]`` product and the rows of each (a
-    multiple of the kernel's K step; the last range ends at K).  K is split
-    when the output tiles cannot fill the card, and whenever ``M <= 64``
-    with ``K >= 1024`` (a few rows over a long K), into enough ranges for
-    about :data:`SPLIT_TARGET_BLOCKS` blocks, each walking at least
-    :data:`SPLIT_MIN_STEPS` steps; none is empty."""
+def split_k(M: int, N: int, K: int, tile_m: int = TILE_M,
+            tile_n: int = TILE_N) -> tuple[int, int]:
+    """``(splits, k_split)``: the number of K ranges an int8 kernel launches
+    for an ``[M, K] x [K, N]`` product in ``tile_m x tile_n`` output tiles
+    and the rows of each (a multiple of the kernel's K step; the last range
+    ends at K).  K is split when the output tiles cannot fill the card, and
+    whenever ``M <= 64`` with ``K >= 1024`` (a few rows over a long K), into
+    enough ranges for about :data:`SPLIT_TARGET_BLOCKS` blocks, each walking
+    at least :data:`SPLIT_MIN_STEPS` steps; none is empty."""
     steps = -(-K // TILE_K)
-    tiles = -(-M // TILE_M) * -(-N // TILE_N)
+    tiles = -(-M // tile_m) * -(-N // tile_n)
     want = 1
     if tiles and (tiles < CARD_SMS or (M <= 64 and K >= 1024)):
         want = max(2, -(-SPLIT_TARGET_BLOCKS // tiles))
@@ -322,6 +326,47 @@ def bitserial_matmul_a4_plain(x_packed: torch.Tensor, planes: torch.Tensor,
                        2 * bk2, bn, n_bits, out_dtype, signed)
 
 
+def _launch_a4(x_packed, planes, x_scale, w_scale, plane_mask, *, n_bits,
+               out_dtype, x_signed, signed, block_k2, block_n):
+    """Check the operands and launch ``bitserial_gemm_a4`` on their CUDA
+    device, the nibbles sign-extended when ``x_signed`` and the MSB plane
+    negative when ``signed`` (:func:`bitserial_matmul_a4` passes one flag
+    for both); returns the output, launched unless it is empty.  Counts
+    nothing."""
+    M, N, K, K2, bk2, bn = _check_a4(x_packed, planes, w_scale, plane_mask,
+                                     n_bits, out_dtype, block_k2, block_n)
+    dev = x_packed.device
+    _prepare_launch([("x_packed", x_packed), ("planes", planes),
+                     ("w_scale", w_scale), ("plane_mask", plane_mask)],
+                    w_scale, plane_mask, dev)
+    if out_dtype == torch.float32 and w_scale is None:
+        w_scale = torch.ones(N, dtype=torch.float32, device=dev)
+    if -(-N // TILE_N) > 65535:
+        raise ValueError(f"N={N} exceeds the launch range")
+    splits, k_split = split_k(M, N, K)
+    workspace = None
+    if splits > 1 and M and N:
+        workspace = torch.zeros((M, N), dtype=torch.int32, device=dev)
+    out = (workspace if workspace is not None and out_dtype == torch.int32
+           else torch.empty((M, N), dtype=out_dtype, device=dev))
+    if M == 0 or N == 0:
+        return out
+    lib = _cb.build("bitserial_gemm_a4")
+    nk, nn = -(-K2 // bk2), -(-N // bn)
+    with torch.cuda.device(dev):
+        err = lib.bitserial_gemm_a4(
+            x_packed.data_ptr(), int(x_signed), planes.data_ptr(),
+            plane_mask.data_ptr() if plane_mask is not None else None,
+            2 * bk2, bn, nk, nn,
+            w_scale.data_ptr() if w_scale is not None else None,
+            float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
+            workspace.data_ptr() if workspace is not None else None,
+            M, N, K, K2, k_split, n_bits, int(signed),
+            _cb.launch_stream(dev))
+    _cb.raise_on_error(err, "bitserial_gemm_a4")
+    return out
+
+
 def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
                         x_scale: float = 1.0,
                         w_scale: torch.Tensor | None = None,
@@ -335,36 +380,18 @@ def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
     ``-2^(n-1)``; unsigned reads both as plain binary.  ``plane_mask`` is
     ``[n_bits, ceil(K2/bk2), ceil(N/bn)]`` with K-blocks of ``2 * bk2``
     weight rows.  CUDA tensors launch the Hopper kernel (and add one to
-    ``bitserial_matmul_a4.launches``); CPU tensors run
+    ``bitserial_matmul_a4.launches``, split K or not); CPU tensors run
     :func:`bitserial_matmul_a4_plain`."""
     if x_packed.device.type == "cpu" and planes.device.type == "cpu":
         return bitserial_matmul_a4_plain(
             x_packed, planes, x_scale, w_scale, plane_mask, n_bits=n_bits,
             out_dtype=out_dtype, signed=signed, block_k2=block_k2,
             block_n=block_n)
-    M, N, K, K2, bk2, bn = _check_a4(x_packed, planes, w_scale, plane_mask,
-                                     n_bits, out_dtype, block_k2, block_n)
-    dev = x_packed.device
-    _prepare_launch([("x_packed", x_packed), ("planes", planes),
-                     ("w_scale", w_scale), ("plane_mask", plane_mask)],
-                    w_scale, plane_mask, dev)
-    if out_dtype == torch.float32 and w_scale is None:
-        w_scale = torch.ones(N, dtype=torch.float32, device=dev)
-    out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    if M == 0 or N == 0:
-        return out
-    lib = _cb.build("bitserial_gemm_a4")
-    nk, nn = -(-K2 // bk2), -(-N // bn)
-    with torch.cuda.device(dev):
-        err = lib.bitserial_gemm_a4(
-            x_packed.data_ptr(), int(signed), planes.data_ptr(),
-            plane_mask.data_ptr() if plane_mask is not None else None,
-            2 * bk2, bn, nk, nn,
-            w_scale.data_ptr() if w_scale is not None else None,
-            float(x_scale), out.data_ptr(), int(out_dtype == torch.float32),
-            M, N, K, K2, n_bits, int(signed), _cb.launch_stream(dev))
-    _cb.raise_on_error(err, "bitserial_gemm_a4")
-    bitserial_matmul_a4.launches += 1
+    out = _launch_a4(x_packed, planes, x_scale, w_scale, plane_mask,
+                     n_bits=n_bits, out_dtype=out_dtype, x_signed=signed,
+                     signed=signed, block_k2=block_k2, block_n=block_n)
+    if out.numel():
+        bitserial_matmul_a4.launches += 1
     return out
 
 

@@ -5,9 +5,10 @@ plain C launcher ``extern "C" int <name>(...)`` that returns the launch's
 ``cudaError_t``.  :func:`build_all` compiles the sources with ``nvcc -gencode
 arch=compute_90a,code=sm_90a``, one process per source, all started
 together, into ``build/kernels/`` at the repository root, each keyed by the
-hash of its own text, and loads them through ``ctypes``.  Nothing is built
-when a module is imported: the first CUDA call of a wrapper builds its
-kernel, and a kernel that does not build raises :class:`KernelError` there.
+hash of its own text and of every ``csrc`` header it includes, and loads
+them through ``ctypes``.  Nothing is built when a module is imported: the
+first CUDA call of a wrapper builds its kernel, and a kernel that does not
+build raises :class:`KernelError` there.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -37,10 +39,13 @@ _SIGNATURES = {
     # signed_planes, stream
     "bitserial_gemm": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _P, _I,
                        _I, _I, _I, _I, _I, _P],
-    "bitserial_gemm_a4": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _I,
-                          _I, _I, _I, _I, _I, _P],
-    # x, w, x_scale, w_scale, bias, out, M, N, K, stream
-    "quant_gemm": [_P, _P, _F, _P, _P, _P, _I, _I, _I, _P],
+    # x_packed, x_signed, planes, mask, mask_bk, mask_bn, mask_nk, mask_nn,
+    # w_scale, x_scale, out, out_float, workspace, M, N, K, K2, k_split,
+    # n_bits, signed_planes, stream
+    "bitserial_gemm_a4": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _F, _P, _I, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, x_scale, w_scale, bias, out, workspace, M, N, K, k_split, stream
+    "quant_gemm": [_P, _P, _F, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, is_bf16, B, H, Hkv, Tq, Tk, D, causal, scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],
@@ -64,10 +69,26 @@ def _nvcc() -> str:
                       "(install the CUDA toolkit or put nvcc on PATH)")
 
 
-def _lib_path(name: str) -> pathlib.Path:
-    source = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-    return _BUILD_DIR / f"lib{name}-{digest}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _lib_path(name: str, csrc: pathlib.Path = _CSRC) -> pathlib.Path:
+    """The library of ``csrc/<name>.cu`` as its source stands: keyed by the
+    source's text and that of every header it includes from ``csrc``
+    (followed through the headers' own includes), so that editing a shared
+    header rebuilds each kernel that includes it."""
+    digest = hashlib.sha256()
+    seen, todo = set(), [f"{name}.cu"]
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.add(rel)
+        text = (csrc / rel).read_bytes()
+        digest.update(rel.encode() + b"\0" + text + b"\0")
+        todo += [m.decode() for m in _INCLUDE.findall(text)
+                 if (csrc / m.decode()).is_file()]
+    return _BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _load(name: str) -> ctypes.CDLL:

@@ -12,8 +12,12 @@ agree bit for bit.
 
 :func:`quant_matmul` launches ``src/repro_torch/csrc/quant_gemm.cu`` for
 CUDA tensors (and adds one to ``quant_matmul.launches``) and runs
-:func:`quant_matmul_plain` for CPU tensors.  It never falls back on a
-CUDA tensor: a kernel that does not build, or a launch that fails, raises
+:func:`quant_matmul_plain` for CPU tensors.  The kernel runs the int8
+tensor-core main loop of ``csrc/int8_mma.cuh`` in 64x128 tiles, split
+along K where :func:`quant_split_k` says so; the splits add into an int32
+workspace the wrapper allocates, and a second launch applies the epilogue.
+It never falls back on a CUDA tensor: a kernel that does not build, or a
+launch that fails, raises
 :class:`~repro_torch.kernels.cuda_build.KernelError`.
 """
 from __future__ import annotations
@@ -21,8 +25,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_build as _cb
+from repro_torch.kernels.bitserial_matmul import CARD_SMS, split_k
 
-__all__ = ["quant_matmul", "quant_matmul_plain"]
+__all__ = ["quant_matmul", "quant_matmul_plain", "quant_split_k"]
+
+QUANT_TILE_M, QUANT_TILE_N = 64, 128  # quant_gemm.cu's output tile
+
+
+def quant_split_k(M: int, N: int, K: int) -> tuple[int, int]:
+    """``(splits, k_split)`` for an ``[M, K] x [K, N]`` W8A8 product in
+    the kernel's 64x128 tiles: :func:`split_k`'s ranges where the tiles
+    cannot fill the card, else one range (a few rows against wide weights,
+    as at the LM head, already make enough tiles)."""
+    tiles = -(-M // QUANT_TILE_M) * -(-N // QUANT_TILE_N)
+    if tiles >= CARD_SMS:
+        return 1, K
+    return split_k(M, N, K, QUANT_TILE_M, QUANT_TILE_N)
 
 
 def _check(x_q, w_q, w_scale, bias):
@@ -37,7 +55,7 @@ def _check(x_q, w_q, w_scale, bias):
     K2, N = w_q.shape
     if K != K2:
         raise ValueError(f"x_q has K={K} but w_q has K={K2}")
-    if max(M, N, K) >= 1 << 31 or -(-M // 64) > 65535:
+    if max(M, N, K) >= 1 << 31 or -(-N // QUANT_TILE_N) > 65535:
         raise ValueError(f"shape {(M, N, K)} exceeds the launch range")
     for name, t in (("w_scale", w_scale), ("bias", bias)):
         if t is None:
@@ -70,7 +88,8 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
                  w_scale: torch.Tensor,
                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """W8A8 GEMM (see the module docstring).  CUDA tensors launch the Hopper
-    kernel; CPU tensors run :func:`quant_matmul_plain`."""
+    kernel (split K or not, one count); CPU tensors run
+    :func:`quant_matmul_plain`."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
         return quant_matmul_plain(x_q, w_q, x_scale, w_scale, bias)
     M, N, K = _check(x_q, w_q, w_scale, bias)
@@ -80,12 +99,17 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
     out = torch.empty((M, N), dtype=torch.float32, device=dev)
     if M == 0 or N == 0:
         return out
+    splits, k_split = quant_split_k(M, N, K)
+    workspace = (torch.zeros((M, N), dtype=torch.int32, device=dev)
+                 if splits > 1 else None)
     lib = _cb.build("quant_gemm")
     with torch.cuda.device(dev):
         err = lib.quant_gemm(
             x_q.data_ptr(), w_q.data_ptr(), float(x_scale),
             w_scale.data_ptr(), bias.data_ptr() if bias is not None else None,
-            out.data_ptr(), M, N, K, _cb.launch_stream(dev))
+            out.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            M, N, K, k_split, _cb.launch_stream(dev))
     _cb.raise_on_error(err, "quant_gemm")
     quant_matmul.launches += 1
     return out
