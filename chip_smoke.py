@@ -32,7 +32,9 @@ results go to lines before the last; each phase prints its wall):
    every head size, at B*H = 224, with outputs near cancellation (V whose
    columns sum to zero), and at the four served prompts' shapes, float32
    (rtol = atol = 1e-5) and bfloat16 (rtol = 2^-7, one bf16 ulp; atol =
-   1e-5); the build phase prints the tiles each flash route runs;
+   1e-5), and at the 16 served shapes of the audio, vision and MoE
+   families (MHA 32/32 at D = 64; GQA 48/8, MHA 16/16, GQA 56/8 at D =
+   128); the build phase prints the tiles each flash route runs;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
@@ -53,7 +55,18 @@ results go to lines before the last; each phase prints its wall):
 7. one batch-2 full-width forward with the kernel and one with the plain
    version: logits and every layer report byte-identical; the correlation
    with the float forward is printed for information; then the forward's
-   split into pack / dot / min-max tree / requant;
+   split into pack / dot / min-max tree / requant; then, at full width on
+   phase 4's first B images: ``apply(quant=True)`` against ``apply()``
+   (correlation above 0.98 per image) and phase 4's emulated logits
+   against ``apply(quant=True)`` (above 0.95); ``nc_forward(x,
+   stream_chunk=1)``, its logits byte-identical to phase 4's and every
+   conv/fc layer's ``filter_loads`` equal to the chunk count, its wall
+   beside the unchunked forward's; a fleet of two ``NCServingEngine``s
+   (``XEON_E5_35MB`` and its 4-slice scaling, ``max_batch=2``) behind
+   ``Orchestrator(router="latency")`` serving phase 4's 4 images, every
+   request completed, SLO and dispatch identities held, every routed
+   logit row byte-identical to phase 4's, dispatches and kernel launches
+   printed per engine;
 8. full-width Qwen2-7B (28 layers, d_model 3584, 28 query heads over 4 KV
    heads, bf16, seeded random weights) served by ``ServingEngine(
    max_batch=4, max_len=2112)``: 4 requests with prompts of 37, 512, 1000
@@ -65,7 +78,22 @@ results go to lines before the last; each phase prints its wall):
    0.125 of every served decode step's, and the same token unless its
    top-2 logit margin is below 0.25; prints the prefill wall, the served
    attention calls' device time (CUDA events around each) and its share
-   of the prefill wall, decode tokens/s and peak device memory;
+   of the prefill wall, decode tokens/s and peak device memory; then the
+   same 4 requests, held the same way, served by musicgen-large,
+   internvl2-26b, moonshot-v1-16b-a3b (einsum impl) and arctic-480b at
+   full width (arctic with 2 of its 35 layers), one model on the card at
+   a time, drawn on the card from a seed; for the MoE models the
+   standalone decode loop replays the served expert choices and the
+   capacity drops they imply, and every replayed choice must be the top-k
+   of the served router probabilities, which must lie within 0.005 of the
+   loop's own, with at most 5% of the routings swapped; two faults planted
+   in arctic's served routing (a row shift of the top-k and of the router
+   probabilities at batch > 1) must each fail those checks; internvl2-26b also
+   prefills stub embeddings at the 4 lengths (attention held against the
+   plain version) and the table's rows of a prompt (bit-equal to its
+   prefill by tokens); moonshot's scatter impl is held against the einsum
+   impl layer by layer within their rounding bound and on one prefill's
+   logits within 0.5;
 9. full-width post-training quantization: ``CalibrationStats`` over every
    linear site's input from the float prefills of the served prompts,
    ``quantize_lm_params``, then W8A8 ``QuantizedLinear`` at all 28 x 7
@@ -82,18 +110,25 @@ results go to lines before the last; each phase prints its wall):
     flash_attention) as device time, 20 calls captured in one CUDA graph
     and replayed between CUDA events (the host's launch overhead is
     printed apart as the eager time), and the plain version eagerly,
-    beside the bound; then ``quant_matmul`` at the PTQ head and
+    beside the bound; then ``quant_matmul`` at the PTQ head,
+    ``flash_attention`` at the families' 16 served shapes and
     ``bitserial_matmul`` at the 4-bit PTQ sites' shapes (signed planes,
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
-11. one JSON line listing the four kernels, then the card line, then
+11. one JSON line listing the four kernels (launches summed over every
+    path that ran them: the Inception serving, stream-chunk and fleet runs
+    for ``bitserial_matmul``, the five served LMs for
+    ``flash_attention``), then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import json
+import math
 import pathlib
 import re
 import subprocess
@@ -707,6 +742,129 @@ def phase_split(inception, nc_layers, bitserial, params, x, wpack, dev, cfg):
     return split
 
 
+def phase_inception_quant(inception, params, x, served, cfg):
+    """Full-width float forwards at batch B: ``apply(quant=True)`` against
+    ``apply()`` (correlation above 0.98 per image, the reference's bar for
+    8-bit quantized inference) and phase 4's emulated logits against
+    ``apply(quant=True)`` (above 0.95, the reference's bar for the
+    emulation)."""
+    lq = inception.apply(params, x, quant=True, config=cfg)
+    lf = inception.apply(params, x, config=cfg)
+    if lq.shape != (x.shape[0], cfg.classes) or not bool(
+            torch.isfinite(lq).all()):
+        raise AssertionError("apply(quant=True): bad logits")
+    for i in range(x.shape[0]):
+        q, f = lq[i].double().cpu().numpy(), lf[i].double().cpu().numpy()
+        e = served[i].double().cpu().numpy()
+        c_qf, c_eq = np.corrcoef(q, f)[0, 1], np.corrcoef(e, q)[0, 1]
+        log(f"[inception-quant] image {i}: corr(quant, float) = {c_qf:.5f} "
+            f"(bar 0.98), corr(emulated, quant) = {c_eq:.5f} (bar 0.95); "
+            f"argmax quant {int(np.argmax(q))}, float {int(np.argmax(f))}, "
+            f"emulated {int(np.argmax(e))}")
+        if not c_qf > 0.98:
+            raise AssertionError(f"image {i}: corr(quant, float) {c_qf}")
+        if not c_eq > 0.95:
+            raise AssertionError(f"image {i}: corr(emulated, quant) {c_eq}")
+
+
+def phase_stream_chunk(inception, bsm, params, x, served, t_forward, dev,
+                       cfg):
+    """Full-width ``nc_forward(x, stream_chunk=1)`` at batch B: logits
+    byte-identical to phase 4's batch-B serving forward, ``filter_loads``
+    of every conv and FC layer equal to the chunk count; returns the
+    bitserial_matmul launches of the run."""
+    bsm.bitserial_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, report = inception.nc_forward(params, x, config=cfg,
+                                          stream_chunk=1, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsm.bitserial_matmul.launches
+    n_chunks = x.shape[0]
+    loads = {lr.filter_loads for lr in report.layers
+             if lr.kind in ("conv", "fc")}
+    log(f"[stream-chunk] batch {x.shape[0]} full width, stream_chunk=1: "
+        f"{wall:.2f} s against the unchunked forward's {t_forward:.2f} s "
+        f"(phase 7); filter_loads per conv/fc layer {sorted(loads)} for "
+        f"{n_chunks} chunks; bitserial_matmul launches {launches}")
+    for i in range(x.shape[0]):
+        if not bits_equal(logits[i], served[i]):
+            raise AssertionError(f"image {i}: stream_chunk logits differ "
+                                 f"from phase 4's batch forward")
+    if loads != {n_chunks}:
+        raise AssertionError(f"filter_loads {sorted(loads)}, want "
+                             f"{n_chunks} for every conv/fc layer")
+    if report.batch != x.shape[0] or launches == 0:
+        raise AssertionError(f"report batch {report.batch}, launches "
+                             f"{launches}")
+    log("[stream-chunk] logits byte-identical to phase 4's batch forward")
+    return launches
+
+
+def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
+                dev, cfg):
+    """Two full-width NCServingEngines on the one card behind
+    ``Orchestrator(router="latency")``: phase 4's images served, every
+    request completed and neither failed nor degraded, the SLO identity and
+    the dispatch count identity held, every routed logit row byte-identical
+    to phase 4's.  Returns the bitserial_matmul launches of the run."""
+    engines = [
+        serve.NCServingEngine(params, cfg, max_batch=2, name="socket-35MB",
+                              device=dev),
+        serve.NCServingEngine(params, cfg, max_batch=2, name="socket-10MB",
+                              geom=geometry.XEON_E5_35MB.scaled(
+                                  4, "xeon-10MB"), device=dev)]
+    per_engine = {e.name: 0 for e in engines}
+
+    def counting(engine):
+        real = engine._forward
+
+        def forward(*a, **k):
+            n = bsm.bitserial_matmul.launches
+            out = real(*a, **k)
+            per_engine[engine.name] += bsm.bitserial_matmul.launches - n
+            return out
+        return forward
+
+    for e in engines:
+        e._forward = counting(e)
+    orch = orchestrator.Orchestrator(engines, slo_ms=1e7, router="latency")
+    for i, img in enumerate(images):
+        orch.submit(serve.NCRequest(rid=i, image=img))
+    bsm.bitserial_matmul.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = orch.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = bsm.bitserial_matmul.launches
+    s = orch.stats()
+    log(f"[fleet] {len(done)} full-width requests over "
+        f"{[e.name for e in engines]} (batch caps "
+        f"{[e.batch_cap for e in engines]}) in {wall:.2f} s; dispatched "
+        f"{s['dispatched']}, batches {s['batch_histogram']}, routes "
+        f"{[(d.engine, d.admit, d.reason) for d in orch.decisions]}; "
+        f"bitserial_matmul launches {per_engine} (total {launches})")
+    if len(done) != len(images) or s["failed"] or orch.pending:
+        raise AssertionError(f"fleet served {len(done)} of {len(images)}")
+    if any(r.degraded for r in done):
+        raise AssertionError("a fleet batch left the emulation (degraded)")
+    if s["slo_hits"] + s["slo_misses"] != s["completed"] + s["failed"]:
+        raise AssertionError(f"SLO identity broken: {s}")
+    if sum(s["dispatched"].values()) != sum(s["batch_histogram"].values()):
+        raise AssertionError(f"dispatch identity broken: {s}")
+    if launches == 0 or sum(per_engine.values()) != launches:
+        raise AssertionError(f"fleet launches {per_engine}, {launches}")
+    for r in done:
+        if not bits_equal(r.logits, served[r.rid]):
+            raise AssertionError(f"request {r.rid}: routed logits differ "
+                                 f"from phase 4's")
+    log("[fleet] every routed logit row byte-identical to phase 4's; "
+        "hits + misses == completed + failed; dispatches == batches")
+    return launches
+
+
 def phase_times(bsm, dev):
     g = torch.Generator().manual_seed(2)
     rows = []
@@ -997,13 +1155,13 @@ def phase_times_quant(qm, dev):
     return rows
 
 
-def phase_times_flash(fa, dev):
-    """``flash_attention`` at FA_SHAPES in bfloat16, causal: kernel, plain
+def phase_times_flash(fa, dev, shapes=FA_SHAPES, tag="time-fa"):
+    """``flash_attention`` at ``shapes`` in bfloat16, causal: kernel, plain
     version, and ``F.scaled_dot_product_attention(is_causal=True)`` on KV
     repeated to H heads."""
     g = torch.Generator().manual_seed(9)
     rows = []
-    for name, B, H, Hkv, T, D in FA_SHAPES:
+    for name, B, H, Hkv, T, D in shapes:
         q = torch.randn((B, H, T, D), generator=g).to(torch.bfloat16).to(dev)
         k = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
         v = torch.randn((B, Hkv, T, D), generator=g).to(torch.bfloat16).to(dev)
@@ -1025,7 +1183,7 @@ def phase_times_flash(fa, dev):
                    4 * B * H * D * pairs, H100_BF16_FLOPS_S)
         rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, **b))
-        log(f"[time-fa] {name} (B,H,Hkv,T,D)={B, H, Hkv, T, D} bf16 causal: "
+        log(f"[{tag}] {name} (B,H,Hkv,T,D)={B, H, Hkv, T, D} bf16 causal: "
             f"kernel {ms:.4f} ms (eager {eager_ms:.4f} ms), plain "
             f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} "
             f"ms (max diff to the kernel {lib_diff:.3g}), bound "
@@ -1101,12 +1259,18 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     each of its attention calls against the plain version, and a standalone
     ``decode_step`` loop fed the served tokens holds every served decode
     step's logits within LM_LOGIT_TOL and its token equal to the standalone
-    pick unless that pick's top-2 margin is below 2 * LM_LOGIT_TOL.
-    Returns the launch count, the wall and the largest bf16 difference of
-    the served attention from the plain version."""
+    pick unless that pick's top-2 margin is below 2 * LM_LOGIT_TOL.  For
+    an MoE model the standalone loop takes the served decode's expert
+    choices and capacity drops, held as ``_RouteReplay`` says.  Returns
+    the launch count, the wall and the largest bf16 difference of the
+    served attention from the plain version."""
     engine = serve.ServingEngine(cfg, params, max_batch=4,
                                  max_len=LM_MAX_LEN, device=dev)
-    served_prefill, decode_logits = {}, []
+    replay = None
+    if cfg.is_moe:
+        from repro_torch.models import moe
+        replay = _RouteReplay(moe, cfg)
+    served_prefill, decode_logits = {}, {}
     walls = {"prefill": 0.0}
     real_prefill, real_decode = transformer.prefill, transformer.decode_step
 
@@ -1120,8 +1284,15 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
         return out
 
     def decode_step(*a, **k):
+        if replay is not None:
+            replay.calls = []
         out = real_decode(*a, **k)
-        decode_logits.append(out[0].clone())
+        rows = [(i, slot.req.rid) for i, slot in enumerate(engine.slots)
+                if slot.active]  # each slot's own row
+        for i, rid in rows:
+            decode_logits.setdefault(rid, []).append(out[0][i].clone())
+        if replay is not None:
+            replay.record(rows)
         return out
 
     real_fa = ops.flash_attention
@@ -1142,6 +1313,8 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
         engine.submit(serve.Request(rid=i, prompt=p, max_tokens=LM_NEW_TOKENS))
     transformer.prefill, transformer.decode_step = prefill, decode_step
     ops.flash_attention = timed_flash
+    if replay is not None:
+        replay.install()
     fa.flash_attention.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1152,6 +1325,8 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     finally:
         transformer.prefill, transformer.decode_step = real_prefill, real_decode
         ops.flash_attention = real_fa
+        if replay is not None:
+            replay.remove()
     wall = time.perf_counter() - t0
     launches = fa.flash_attention.launches
     fa_ms = sum(a.elapsed_time(b) for a, b in fa_events)
@@ -1160,7 +1335,7 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     decode_wall = wall - walls["prefill"]
     log(f"[lm-serve] {cfg.name} ({cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, "
-        f"seeded random weights): {len(done)} requests, prompts "
+        f"seeded random weights, 4 slots): {len(done)} requests, prompts "
         f"{list(LM_PROMPTS)}, {n_tokens} tokens in {wall:.3f} s; prefill "
         f"wall {walls['prefill']:.3f} s ({sum(LM_PROMPTS)} prompt tokens), "
         f"decode {decode_wall:.3f} s for {n_tokens - len(done)} tokens in "
@@ -1199,12 +1374,24 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
             raise AssertionError(f"request {r.rid}: served prefill logits "
                                  f"differ from a standalone prefill")
         step_logits, pos = [logits[0]], toks.shape[1]
-        for tok in r.out[:-1]:  # fed the served tokens: the same inputs
-            nxt = torch.tensor([[tok]], dtype=torch.int32, device=dev)
-            lg, caches = transformer.decode_step(cfg, params, nxt, caches, pos)
-            step_logits.append(lg[0])
-            pos += 1
-        diffs = [0.0] + [(decode_logits[t - 1][r.rid].float()
+        if replay is not None:
+            replay.install()
+        try:
+            for t, tok in enumerate(r.out[:-1]):  # fed the served tokens
+                if replay is not None:
+                    replay.force(r.rid, t)
+                nxt = torch.tensor([[tok]], dtype=torch.int32, device=dev)
+                lg, caches = transformer.decode_step(cfg, params, nxt,
+                                                     caches, pos)
+                step_logits.append(lg[0])
+                pos += 1
+        finally:
+            if replay is not None:
+                replay.remove()
+        swaps0 = replay.swaps if replay is not None else 0
+        if replay is not None:
+            replay.check(r.rid)
+        diffs = [0.0] + [(decode_logits[r.rid][t - 1].float()
                           - step_logits[t].float()).abs().max().item()
                          for t in range(1, LM_NEW_TOKENS)]
         margins = [_top2_margin(lg) for lg in step_logits]
@@ -1218,7 +1405,12 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
             f"{LM_NEW_TOKENS} tokens equal to the standalone pick on the "
             f"same inputs; {near} steps with a standalone top-2 margin below "
             f"{2 * LM_LOGIT_TOL}; served vs standalone decode logits max "
-            f"diff {max(diffs):.4g} (margins {[round(m, 4) for m in margins]})")
+            f"diff {max(diffs):.4g} (margins {[round(m, 4) for m in margins]})"
+            + ("" if replay is None else
+               f"; {replay.swaps - swaps0} of "
+               f"{cfg.n_layers * (LM_NEW_TOKENS - 1)} decode routings "
+               f"replayed from the served run differed from the standalone "
+               f"top-{cfg.top_k}"))
         if max(diffs) > LM_LOGIT_TOL:
             raise AssertionError(f"request {r.rid}: served decode logits "
                                  f"differ from the standalone loop's by "
@@ -1228,13 +1420,409 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
                 raise AssertionError(f"request {r.rid}: served token {t} "
                                      f"differs from the standalone pick at "
                                      f"a top-2 margin of {margins[t]}")
+    if replay is not None:
+        replay.finish()
     log(f"[lm-serve] {agree_total} of {LM_NEW_TOKENS * len(prompts)} tokens "
         f"equal to the standalone pick ({near_total} near-ties); largest "
         f"served-vs-standalone decode logit difference {worst_diff:.4g} "
         f"(bound {LM_LOGIT_TOL}); the {launches} served attention calls "
         f"within tolerance of the plain version (bf16 max abs diff "
-        f"{worst_fa[torch.bfloat16]:.3g})")
+        f"{worst_fa[torch.bfloat16]:.3g})"
+        + ("" if replay is None else f"; {replay.summary()}"))
     return launches, wall, worst_fa[torch.bfloat16]
+
+
+# The MoE routing replay's limits.  The served (batch 4) router logits may
+# differ from the batch-1 loop's by what LM_LOGIT_TOL allows the output
+# logits: both are a unit-RMS normed hidden state times weights of variance
+# 1/d, so rounding moves them alike.  The logits are read back from the
+# probabilities up to softmax's shift (log p less its mean over experts).
+# Then a replayed choice that displaces one of the loop's own bridges a
+# probability gap of at most 1 - exp(-2 * LM_LOGIT_TOL) = 22% of the loop's
+# k-th probability, and at most MOE_SWAP_SHARE of the routings may swap.
+MOE_SWAP_SHARE = 0.05
+MOE_GAP_SHARE = 1.0 - math.exp(-2 * LM_LOGIT_TOL)
+
+
+def _stable_topk(p: torch.Tensor, k: int) -> set:
+    """The k largest entries' indices, ties to the lower index (a stable
+    sort in float64 on the host, apart from the port's ``_topk``)."""
+    return set(np.argsort(-p.double().numpy(), kind="stable")[:k].tolist())
+
+
+def _router_logits(p: torch.Tensor) -> torch.Tensor:
+    lp = torch.log(p.double().clamp_min(1e-300))
+    return lp - lp.mean()
+
+
+class _RouteReplay:
+    """The served decode's MoE routing, replayed in the standalone loop.
+
+    Top-k routing is discontinuous: where two experts' router
+    probabilities nearly tie, the last-bit differences between a batch-4
+    and a batch-1 GEMM can swap the choice, and a swapped expert moves
+    that token's logits by far more than rounding.  So each served decode
+    step records, per slot and layer, the router probabilities, the expert
+    choices and which of them the capacity keeps (the step's (token,
+    choice) pairs in order, each expert keeping its first C, computed here
+    from the recorded choices of every row; kept on the device until the
+    served run ends, so the recording adds no host sync to its wall); the
+    standalone loop takes
+    those choices, with its own probabilities renormalized over them and
+    the dropped ones weighted 0 (``force``).  ``check`` then holds what
+    was replayed, so that a wrong served choice cannot pass: each served
+    choice is the top-k of the served probabilities, the served router
+    logits lie within LM_LOGIT_TOL of the loop's own, and every swap of
+    the loop's own choice bridges a gap below MOE_GAP_SHARE of its k-th
+    probability; ``finish`` holds the share of swapped routings."""
+
+    def __init__(self, moe, cfg):
+        self.moe, self.real, self.cfg = moe, moe._topk, cfg
+        self.steps: list = []  # served decode steps, on the device
+        self.served: dict = {}  # rid -> [step][layer] (probs, choice, keep)
+        self.own: dict = {}  # rid -> [step][layer] the loop's own probs
+        self.calls = None  # recording one served decode step
+        self.forced = None  # replaying one standalone decode step
+        self.routings = self.swaps = self.drops = 0
+        self.gap = self.gap_share = self.drift = 0.0
+
+    def install(self):
+        self.moe._topk = self.topk
+
+    def remove(self):
+        self.moe._topk = self.real
+        self.calls = self.forced = None
+
+    def record(self, rows):
+        """After a served decode step: ``rows`` are the active slots'
+        (row, request id)."""
+        self.steps.append((rows, self.calls))
+        self.calls = None
+
+    def _settle(self):
+        for rows, calls in self.steps:
+            self._settle_step(rows, calls)
+        self.steps = []
+
+    def _settle_step(self, rows, calls):
+        layers = []
+        for probs, idx in calls:
+            probs, idx = probs.float().cpu(), idx.cpu()
+            S, k = idx.shape
+            cap = max(int(S * k * self.cfg.capacity_factor
+                          / self.cfg.n_experts), k)
+            keep = torch.ones(idx.shape, dtype=torch.bool)
+            taken: dict = {}
+            for s in range(S):
+                for j in range(k):
+                    e = int(idx[s, j])
+                    keep[s, j] = taken.get(e, 0) < cap
+                    taken[e] = taken.get(e, 0) + 1
+            layers.append((probs, idx, keep))
+        for i, rid in rows:
+            self.served.setdefault(rid, []).append(
+                [(p[i], idx[i], keep[i]) for p, idx, keep in layers])
+            self.drops += sum(int((~keep[i]).sum()) for _, _, keep in layers)
+
+    def force(self, rid, step):
+        self._settle()
+        self.forced, self.mine = self.served[rid][step], []
+        self.own.setdefault(rid, []).append(self.mine)
+
+    def topk(self, probs, k):
+        w, idx = self.real(probs, k)
+        if self.calls is not None:  # a served decode step
+            if probs.shape[0] != 1:
+                raise AssertionError(f"a decode step routed in "
+                                     f"{probs.shape[0]} groups, not one")
+            self.calls.append((probs[0].clone(), idx[0].clone()))
+        elif self.forced is not None:  # the standalone loop
+            _, want, keep = self.forced[len(self.mine)]
+            self.mine.append(probs[0, 0].float().cpu())
+            want = want.to(probs.device)
+            pw = probs[0, 0][want]
+            w = (pw / torch.clamp_min(pw.sum(), 1e-9)
+                 * keep.to(probs.device, torch.float32))[None, None]
+            idx = want[None, None]
+        return w, idx
+
+    def check(self, rid):
+        k = self.cfg.top_k
+        for t, (steps, mine) in enumerate(zip(self.served[rid],
+                                              self.own[rid])):
+            if len(steps) != len(mine):
+                raise AssertionError(f"request {rid}, decode step {t}: "
+                                     f"{len(steps)} served routings, "
+                                     f"{len(mine)} standalone")
+            for layer, ((pb, want, _), ps) in enumerate(zip(steps, mine)):
+                where = f"request {rid}, decode step {t}, MoE layer {layer}"
+                top, want = _stable_topk(pb, k), set(want.tolist())
+                if top != want:
+                    raise AssertionError(
+                        f"{where}: the served expert choice {sorted(want)} "
+                        f"is not the top-{k} of the served router "
+                        f"probabilities, {sorted(top)}")
+                d = float((_router_logits(pb)
+                           - _router_logits(ps)).abs().max())
+                self.drift = max(self.drift, d)
+                if d > LM_LOGIT_TOL:
+                    raise AssertionError(
+                        f"{where}: the served router logits differ from the "
+                        f"standalone loop's by {d:.4g} > {LM_LOGIT_TOL}")
+                self.routings += 1
+                mine_top = _stable_topk(ps, k)
+                if mine_top != want:
+                    self.swaps += 1
+                    kth = float(ps[sorted(mine_top)].min())
+                    gap = kth - float(ps[sorted(want)].min())
+                    self.gap = max(self.gap, gap)
+                    self.gap_share = max(self.gap_share, gap / kth)
+                    if gap > MOE_GAP_SHARE * kth:
+                        raise AssertionError(
+                            f"{where}: a replayed choice displaces one of "
+                            f"the loop's own across a probability gap of "
+                            f"{gap:.4g}, {gap / kth:.3f} of its k-th "
+                            f"probability > {MOE_GAP_SHARE:.3f}")
+
+    def finish(self):
+        if self.swaps > MOE_SWAP_SHARE * self.routings:
+            raise AssertionError(f"{self.swaps} of {self.routings} replayed "
+                                 f"routings swapped, more than "
+                                 f"{MOE_SWAP_SHARE:.0%}")
+
+    def summary(self) -> str:
+        return (f"{self.swaps} of {self.routings} replayed routings "
+                f"differed from the standalone top-{self.cfg.top_k} (limit "
+                f"{MOE_SWAP_SHARE:.0%}), the largest such gap {self.gap:.3g} "
+                f"({self.gap_share:.3f} of the k-th probability, limit "
+                f"{MOE_GAP_SHARE:.3f}); served router logits within "
+                f"{self.drift:.4g} of the loop's (bound {LM_LOGIT_TOL}); "
+                f"{self.drops} served choices dropped by capacity, replayed "
+                f"as weight 0")
+
+
+def _planted_routing_faults(transformer, serve, ops, fa, moe, cfg, params,
+                            prompts, dev):
+    """Faults planted in the served routing, each a row shift at batch > 1
+    as a slot mix-up would make it: of the top-k's choices (a choice that
+    is not the top-k of its own probabilities) and of the router's
+    probabilities (another token's routing).  Each must fail the replay's
+    checks in ``phase_lm_serve``."""
+    real = {"_topk": moe._topk, "_router": moe._router}
+
+    def shifted_topk(probs, k):
+        w, idx = real["_topk"](probs, k)
+        if probs.shape[-2] > 1:
+            w, idx = w.roll(1, -2), idx.roll(1, -2)
+        return w, idx
+
+    def shifted_router(c, p, x):
+        probs = real["_router"](c, p, x)
+        return probs.roll(1, -2) if probs.shape[-2] > 1 else probs
+
+    for attr, fake, expect in (("_topk", shifted_topk, "is not the top-"),
+                               ("_router", shifted_router,
+                                "router logits differ")):
+        setattr(moe, attr, fake)
+        try:
+            phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts,
+                           dev)
+        except AssertionError as e:
+            if expect not in str(e):
+                raise
+            log(f"[lm-families] {cfg.name}: a row shift planted in the "
+                f"served {attr} fails the routing check: {e}")
+        else:
+            raise AssertionError(f"a row shift planted in the served {attr} "
+                                 f"passed the routing checks")
+        finally:
+            setattr(moe, attr, real[attr])
+
+
+# the audio, vision and MoE families at full width: (arch, layers kept or
+# None for all).  arctic-480b keeps 2 of its 35 layers (13.4 B expert
+# parameters a layer, 55 GB in bf16 at 2 layers: one card holds no more).
+# Its decode capacity, max(int(4*2*1.25/128), 2) = 2 rows an expert for the
+# 4 slots' tokens, can drop a choice; the replay carries the drops over.
+LM_FAMILIES = [("musicgen-large", None), ("internvl2-26b", None),
+               ("moonshot-v1-16b-a3b", None), ("arctic-480b", 2)]
+# (name, B, H, Hkv, T, D) of every served prefill of the families
+FA_FAMILY_SERVED = [(f"{arch} T{T}", 1, H, Hkv, T, D)
+                    for arch, H, Hkv, D in (("musicgen-large", 32, 32, 64),
+                                            ("internvl2-26b", 48, 8, 128),
+                                            ("moonshot-v1-16b-a3b", 16, 16,
+                                             128),
+                                            ("arctic-480b", 56, 8, 128))
+                    for T in LM_PROMPTS]
+# moonshot's scatter impl against the einsum impl on one prefill.  Layer by
+# layer, on the same inputs, the two differ only by rounding: einsum rounds
+# sum_k w_k * y_k once to bf16, scatter rounds each product and the sum, and
+# the experts' outputs y_k may differ by one rounding between the two GEMM
+# calls; with bf16's unit roundoff 2^-8 that is
+# |einsum - scatter| <= 2^-7 * (sum_k |w_k * y_k| + |sum_k w_k * y_k|).
+# Over 48 layers those differences compound and can flip near-tied router
+# choices, so the last-position logits are held to a looser bound: 16 bf16
+# steps at their magnitude (about 4, a step 2^-5); a float-for-float CPU
+# emulation at reduced width (48 layers, 64 experts, top 6) moved them by
+# 0.21
+MOE_IMPL_LOGIT_TOL = 0.5
+
+
+def _moe_impl_check(moe, cfg, p, x, y, worst):
+    """Hold ``moe_apply_scatter`` on x against the einsum impl's output y
+    within the rounding bound above; ``worst`` keeps the largest difference
+    and the largest ratio of difference to bound."""
+    ys = moe.moe_apply_scatter(cfg, p, x)
+    xg, valid, S, G, ungroup = moe._group(cfg, x)
+    C = moe._capacity(cfg, S)
+    w, idx = moe._topk(moe._router(cfg, p, xg), cfg.top_k)
+    w = w * valid.float()[..., None]
+    onehot = torch.nn.functional.one_hot(idx, cfg.n_experts).float()
+    onehot = onehot * valid.float()[..., None, None]
+    flat = onehot.reshape(G, -1, cfg.n_experts)
+    pos = ((torch.cumsum(flat, 1) - 1.0) * flat).sum(-1).reshape(w.shape)
+    keep = pos < C
+    slot = torch.where(keep, pos, float(C)).long()
+    pos_oh = torch.nn.functional.one_hot(slot, C + 1)[..., :C].float()
+    combine = torch.einsum("gske,gskc,gsk->gsec", onehot, pos_oh,
+                           torch.where(keep, w, 0.0))
+    dispatch = torch.einsum("gske,gskc->gsec", onehot, pos_oh)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+    ye = moe._expert_ffn(cfg, p, xe).float()
+    exact = ungroup(torch.einsum("gsec,gecd->gsd",
+                                 combine.to(x.dtype).float(), ye))
+    mags = ungroup(torch.einsum("gsec,gecd->gsd",
+                                combine.to(x.dtype).float().abs(), ye.abs()))
+    bound = 2.0 ** -7 * (mags + exact.abs()) + 1e-6
+    diff = (y.float() - ys.float()).abs()
+    worst["diff"] = max(worst["diff"], diff.max().item())
+    worst["ratio"] = max(worst["ratio"], (diff / bound).max().item())
+    if not bool((diff <= bound).all()):
+        raise AssertionError(f"moe scatter != einsum beyond rounding: max "
+                             f"diff {diff.max().item()}")
+
+
+def phase_lm_family(transformer, serve, ops, fa, moe, frontends, get_config,
+                    arch, keep_layers, dev):
+    """One full-width LM family on the card, alone: seeded init straight
+    on the device, the 4 served requests held as phase 8 holds Qwen2-7B,
+    plus internvl2-26b's prefills from stub embeddings, moonshot's scatter
+    impl against its einsum impl and, on arctic-480b (2 layers, so cheap
+    to serve again), the planted routing faults.  Returns the flash_attention
+    launches of the served run and the largest bf16 difference of the
+    served attention from the plain version."""
+    cfg = get_config(arch)
+    cut = ""
+    if keep_layers is not None:
+        cut = f" (cut to {keep_layers} of {cfg.n_layers} layers)"
+        cfg = dataclasses.replace(cfg, n_layers=keep_layers)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    gib = 2 ** 30
+    log(f"[lm-families] {arch}{cut}: {cfg.param_count() / 1e9:.2f} B "
+        f"parameters ({cfg.dtype}) drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated(dev) / gib:.2f} GiB allocated, init "
+        f"peak {torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB")
+    prompts = _lm_prompts(cfg.vocab_size)
+    launches, _, worst = phase_lm_serve(transformer, serve, ops, fa, cfg,
+                                        params, prompts, dev)
+    if arch == "arctic-480b":
+        _planted_routing_faults(transformer, serve, ops, fa, moe, cfg,
+                                params, prompts, dev)
+    real_fa = ops.flash_attention
+    worst_fa = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    if cfg.frontend == "vision_patch":
+        g = torch.Generator(device=dev).manual_seed(1)
+        for T in LM_PROMPTS:
+            emb = frontends.stub_embeddings(cfg, g, 1, T, device=dev)
+
+            def checked_flash(q, k, v, *, causal=True):
+                out = real_fa(q, k, v, causal=causal)
+                _flash_compare(fa, q, k, v, causal, worst_fa,
+                               f"the {T}-embedding prefill", got=out)
+                return out
+
+            fa.flash_attention.launches = 0
+            ops.flash_attention = checked_flash
+            try:
+                logits, _ = transformer.prefill(cfg, params, embeds=emb)
+            finally:
+                ops.flash_attention = real_fa
+            if (logits.shape != (1, cfg.vocab_size)
+                    or not bool(torch.isfinite(logits).all())
+                    or fa.flash_attention.launches != cfg.n_layers):
+                raise AssertionError(f"stub-embedding prefill at T={T}: "
+                                     f"launches "
+                                     f"{fa.flash_attention.launches}")
+        toks = torch.as_tensor(prompts[1], device=dev)[None]
+        by_tok, _ = transformer.prefill(cfg, params, toks)
+        by_emb, _ = transformer.prefill(
+            cfg, params, embeds=params["embed"][toks.long()])
+        if not bits_equal(by_tok, by_emb):
+            raise AssertionError("prefill from the embedding table's rows "
+                                 "differs from the prefill by tokens")
+        log(f"[lm-families] {arch}: stub-embedding prefills at T "
+            f"{list(LM_PROMPTS)} finite, {cfg.n_layers} flash launches each,"
+            f" attention within tolerance of the plain version (bf16 max "
+            f"abs diff {worst_fa[torch.bfloat16]:.3g}); embeddings gathered "
+            f"from the table give the tokens' prefill bit for bit")
+    if cfg.is_moe and arch == "moonshot-v1-16b-a3b":
+        toks = torch.as_tensor(prompts[0], device=dev)[None]
+        real_moe = moe.moe_apply
+        impl_worst = {"diff": 0.0, "ratio": 0.0}
+
+        def checked_moe(c, p, x):
+            y = real_moe(c, p, x)
+            _moe_impl_check(moe, c, p, x, y, impl_worst)
+            return y
+
+        moe.moe_apply = checked_moe
+        try:
+            e_logits, _ = transformer.prefill(cfg, params, toks)
+        finally:
+            moe.moe_apply = real_moe
+        s_logits, _ = transformer.prefill(
+            dataclasses.replace(cfg, moe_impl="scatter"), params, toks)
+        diff = (e_logits.float() - s_logits.float()).abs().max().item()
+        log(f"[lm-families] {arch}: moe_impl scatter against einsum on the "
+            f"{toks.shape[1]}-token prefill: every layer within the rounding "
+            f"bound (max diff {impl_worst['diff']:.4g}, at most "
+            f"{impl_worst['ratio']:.3f} of the bound); last-position logits "
+            f"max diff {diff:.4g} (bound {MOE_IMPL_LOGIT_TOL}); argmax "
+            f"{int(e_logits.argmax())} / {int(s_logits.argmax())}")
+        if diff > MOE_IMPL_LOGIT_TOL:
+            raise AssertionError(f"moe scatter logits differ from einsum by "
+                                 f"{diff} > {MOE_IMPL_LOGIT_TOL}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, max(worst, worst_fa[torch.bfloat16])
+
+
+def phase_flash_family_shapes(fa, dev):
+    """``flash_attention`` against its plain version at every served shape
+    of the families (FA_FAMILY_SERVED), on random inputs, bfloat16 and
+    float32; returns the largest absolute differences (f32, bf16)."""
+    g = torch.Generator().manual_seed(11)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, B, H, Hkv, T, D in FA_FAMILY_SERVED:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, H, T, D), generator=g).to(dtype).to(dev)
+            k = torch.randn((B, Hkv, T, D), generator=g).to(dtype).to(dev)
+            v = torch.randn((B, Hkv, T, D), generator=g).to(dtype).to(dev)
+            _flash_compare(fa, q, k, v, True, worst, f"{name} {dtype}")
+    log(f"[kernel-fa] {2 * len(FA_FAMILY_SERVED)} cases at the families' "
+        f"served shapes (MHA 32/32 at D = 64, GQA 48/8, MHA 16/16, GQA 56/8 "
+        f"at D = 128; T {list(LM_PROMPTS)}) within tolerance of the plain "
+        f"version (f32 max abs diff {worst[torch.float32]:.3g}; bf16 "
+        f"{worst[torch.bfloat16]:.3g})")
+    return worst[torch.float32], worst[torch.bfloat16]
 
 
 def _capture_sites(layers, transformer, sink):
@@ -1464,15 +2052,16 @@ def main() -> int:
         print("chip_smoke: no CUDA GPU is available", file=sys.stderr)
         return 2
     from repro_torch.configs import get_config
-    from repro_torch.core import backends, bitserial, faults, nc_layers
-    from repro_torch.core import quantize
+    from repro_torch.core import backends, bitserial, cache_geometry, faults
+    from repro_torch.core import nc_layers, quantize
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
-    from repro_torch.launch import serve
-    from repro_torch.models import inception, layers, transformer
+    from repro_torch.launch import orchestrator, serve
+    from repro_torch.models import frontends, inception, layers, moe
+    from repro_torch.models import transformer
     from repro_torch.quant import ptq
 
     t_start = time.perf_counter()
@@ -1502,6 +2091,8 @@ def main() -> int:
     worst_a4 = timed("kernel-a4", phase_kernel_a4, bsm, dev)
     worst_qm = timed("kernel-qm", phase_quant_kernel, qm, dev)
     worst_fa = max(timed("kernel-fa", phase_flash_kernel, fa, dev))
+    worst_fa = max(worst_fa, *timed("kernel-fa-families",
+                                    phase_flash_family_shapes, fa, dev))
     cfg = inception.FULL
     params = inception.init_params(torch.Generator().manual_seed(0),
                                    config=cfg, device=dev)
@@ -1523,6 +2114,16 @@ def main() -> int:
         f"{t_forward:.2f} s ({reexec} passes re-run)")
     timed("split", phase_split, inception, nc_layers, bitserial, params, x,
           wpack, dev, cfg)
+    timed("inception-quant", phase_inception_quant, inception, params, x,
+          served, cfg)
+    launches_chunk = timed("stream-chunk", phase_stream_chunk, inception,
+                           bsm, params, x, served, t_forward, dev, cfg)
+    launches_fleet = timed("fleet", phase_fleet, serve, orchestrator,
+                           cache_geometry, bsm, params, images, served, dev,
+                           cfg)
+    log(f"[serve] bitserial_matmul launches by path: serve {launches}, "
+        f"stream-chunk {launches_chunk}, fleet {launches_fleet}")
+    launches += launches_chunk + launches_fleet
     del params, wpack, served, x
     lm_cfg = get_config(LM_ARCH)
     lm_params = timed("lm-init", lambda: transformer.init_lm(
@@ -1535,10 +2136,25 @@ def main() -> int:
     launches_qm = timed("lm-ptq", phase_lm_ptq, transformer, layers, ptq,
                         ops, qm, bsm, lm_cfg, lm_params, prompts, dev)
     del lm_params
+    fa_by_path = {LM_ARCH: launches_fa}
+    for arch, keep_layers in LM_FAMILIES:
+        n, w = timed(f"lm-{arch}", phase_lm_family, transformer, serve, ops,
+                     fa, moe, frontends, get_config, arch, keep_layers, dev)
+        fa_by_path[arch] = n
+        worst_fa = max(worst_fa, w)
+    log(f"[lm-families] flash_attention launches by served model: "
+        f"{fa_by_path}")
+    launches_fa = sum(fa_by_path.values())
     rows = timed("times", phase_times, bsm, dev)
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)
     rows_fa = timed("times-fa", phase_times_flash, fa, dev)
+    rows_fam = timed("times-fa-families", phase_times_flash, fa, dev,
+                     FA_FAMILY_SERVED, "time-fa-families")
+    log(f"[time-fa-families] sums (not in the kernels line): kernel "
+        f"{sum(r['ms'] for r in rows_fam):.4f} ms, SDPA "
+        f"{sum(r['library_ms'] for r in rows_fam):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in rows_fam):.5f} ms")
     timed("times-ptq4", phase_times_ptq4, bsm, dev)
     phase_registers(cuda_build)
     kernels = [

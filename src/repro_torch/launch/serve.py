@@ -19,6 +19,7 @@ batches from the cycle model calibrated against measured batch walls.
 
 Usage:
     python -m repro_torch.launch.serve --arch qwen2-7b --requests 4
+    python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --max-len 2112
     python -m repro_torch.launch.serve --arch qwen2-7b --reduced --device cpu
     python -m repro_torch.launch.serve --neural-cache --requests 8
     python -m repro_torch.launch.serve --neural-cache --full --requests 4 --max-batch 2
@@ -590,8 +591,8 @@ def _main_lm(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(REGISTRY),
-                    help="serve this LM (dense families) with seeded random "
-                         "weights")
+                    help="serve this LM (dense, audio, vision and MoE "
+                         "families) with seeded random weights")
     ap.add_argument("--neural-cache", action="store_true",
                     help="serve Inception images through the Neural Cache "
                          "emulation instead of an LM")

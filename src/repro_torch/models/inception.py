@@ -345,10 +345,15 @@ def _pool(x, kind, r, stride, pad):
     return (s / n).permute(0, 2, 3, 1)
 
 
-def _apply_op(x, name, op, params):
+def _apply_op(x, name, op, params, quant: bool):
     if op[0] == "conv":
         _, r, s, m, stride, pad = op
-        return torch.relu(_conv(x, params[name], stride, pad))
+        p = params[name]
+        if quant:
+            x = q.fake_quant(x)  # dynamic uint8 activations (§IV-D)
+            wq, wscale = q.quantize_per_channel(p["w"], axis=-1)
+            p = dict(p, w=wq.to(torch.float32) * wscale)
+        return torch.relu(_conv(x, p, stride, pad))
     if op[0] in ("maxpool", "avgpool"):
         _, r, stride, pad = op
         return _pool(x, op[0], r, stride, pad)
@@ -357,16 +362,21 @@ def _apply_op(x, name, op, params):
         for i, sub in enumerate(op[1:]):
             y = x
             for j, sop in enumerate(sub):
-                y = _apply_op(y, f"{name}_s{i}_{j}", sop, params)
+                y = _apply_op(y, f"{name}_s{i}_{j}", sop, params, quant)
             outs.append(y)
         return torch.cat(outs, dim=-1)
     raise ValueError(op)
 
 
-def apply(params: dict, x: torch.Tensor,
+def apply(params: dict, x: torch.Tensor, quant: bool = False,
           config: InceptionConfig = FULL) -> torch.Tensor:
     """Float forward pass.  ``x``: ``[N, H, W, 3]`` float32 in [0, 1] on the
     parameters' device; returns ``[N, classes]``.
+
+    ``quant=True`` emulates 8-bit inference in float: every conv's input
+    goes through a per-tensor dynamic ``fake_quant`` (uint8), its weights
+    through symmetric per-channel quantization, and the pooled features
+    through ``fake_quant`` before the FC, as in the reference.
 
     Sets ``torch.backends.cudnn.allow_tf32`` and
     ``torch.backends.cuda.matmul.allow_tf32`` to False (process-wide): the
@@ -374,16 +384,18 @@ def apply(params: dict, x: torch.Tensor,
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     for name, op in config.stem:
-        x = _apply_op(x, name, op, params)
+        x = _apply_op(x, name, op, params, quant)
     for bname, branches in config.mixed:
         outs = []
         for bi, branch in enumerate(branches):
             y = x
             for oi, op in enumerate(branch):
-                y = _apply_op(y, f"{bname}_b{bi}_{oi}", op, params)
+                y = _apply_op(y, f"{bname}_b{bi}_{oi}", op, params, quant)
             outs.append(y)
         x = torch.cat(outs, dim=-1)
     x = x.mean(dim=(1, 2))  # global average pool
+    if quant:
+        x = q.fake_quant(x)
     p = params["FullyConnected"]
     return x @ p["w"][0, 0] * p["scale"] + p["bias"]
 
@@ -739,6 +751,35 @@ def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
     yield "FullyConnected"
 
 
+def _merge_chunk_records(per_chunk: list[list[NCLayerReport]],
+                         B: int) -> list[NCLayerReport]:
+    """Merge per-chunk layer reports into whole-batch reports: emulated
+    counters sum across chunks; modeled numbers are per image and
+    batch-independent, so the first chunk's stand for all.
+    ``filter_loads`` sums to the chunk count (each chunk packs each layer's
+    filter grid once), the quarantined slices are the union and
+    ``live_output_bytes`` the largest chunk's."""
+    merged = []
+    for recs in zip(*per_chunk):
+        r0 = recs[0]
+        merged.append(dataclasses.replace(
+            r0,
+            out_shape=(B,) + tuple(r0.out_shape[1:]),
+            emulated_cycles=sum(r.emulated_cycles for r in recs),
+            lanes=sum(r.lanes for r in recs),
+            zero_operand_lanes=sum(r.zero_operand_lanes for r in recs),
+            batch=B,
+            minmax_cycles=sum(r.minmax_cycles for r in recs),
+            filter_loads=sum(r.filter_loads for r in recs),
+            reexec_passes=sum(r.reexec_passes for r in recs),
+            faults_detected=sum(r.faults_detected for r in recs),
+            quarantined_slices=tuple(sorted(
+                {s for r in recs for s in r.quarantined_slices})),
+            live_output_bytes=max(r.live_output_bytes for r in recs),
+        ))
+    return merged
+
+
 def nc_forward(params: dict, x,
                config: InceptionConfig = REDUCED,
                geom: CacheGeometry = XEON_E5_35MB,
@@ -750,6 +791,7 @@ def nc_forward(params: dict, x,
                overlap: bool = False,
                integrity: bool = False,
                compressed: bool = False,
+               stream_chunk: int | None = None,
                device: str | torch.device | None = None):
     """Quantized Inception forward pass through the bit-serial emulation.
 
@@ -770,7 +812,14 @@ def nc_forward(params: dict, x,
     re-execution, and stuck-slice quarantine under an active
     ``core.faults`` scope; ``compressed=True`` plans CSR bit-plane filter
     residency.  Logits stay byte-identical to the unchecked dense run.
-    The reference's ``stream_chunk`` is not part of this package yet.
+
+    ``stream_chunk=N`` streams the batch through the network in chunks of
+    ``N`` images advanced in a skewed wavefront: stage t of chunk i runs
+    while chunk i+1 runs stage t-1 (cross-layer §VI-C streaming).  Each
+    chunk plans its own chunk-sized schedule and packs its own filter
+    grids, so ``filter_loads`` in the merged report sums to the chunk
+    count; logits stay byte-identical (quantization is per image).  It
+    replans per chunk, so it raises beside an explicit ``schedule``.
 
     Returns ``(logits [B?, classes] float32 on the device, NCForwardReport)``
     equal to the reference's."""
@@ -800,14 +849,54 @@ def nc_forward(params: dict, x,
         raise ValueError("request compression through the schedule "
                          "(plan_network(..., compressed=True)); compressed= "
                          "with an explicit schedule is ambiguous")
+    if schedule is not None and stream_chunk is not None:
+        raise ValueError("stream_chunk replans per chunk; it cannot honor "
+                         "an explicit whole-batch schedule")
     engine = _backends.resolve_backend(
         engine, schedule.backend if schedule is not None else None)
     specs_list = inception_v3_specs(config)
     specs = {s.name: s for s in specs_list}
     if wpack is None:
         wpack = prepare_conv_weights(params, config)
+    occ = (network_occupancy(wpack, config)
+           if sparse and schedule is None else None)
+
+    if stream_chunk is not None and stream_chunk < B:
+        # cross-layer streaming: chunk generators advanced in a skewed
+        # wavefront; chunk i runs stage t while chunk i+1 runs stage t-1
+        per_records: list[list[NCLayerReport]] = []
+        per_states: list[dict] = []
+        gens = []
+        for i in range(0, B, stream_chunk):
+            xc = x4[i:i + stream_chunk]
+            sc = sched.plan_network(specs_list, geom, batch=xc.shape[0],
+                                    occupancy=occ, overlap=overlap,
+                                    integrity=integrity,
+                                    compressed=compressed)
+            recs: list[NCLayerReport] = []
+            st = {"concat_requant_cycles": 0}
+            per_records.append(recs)
+            per_states.append(st)
+            gens.append(_nc_stage_gen(
+                xc, config, wpack, specs, {p.spec.name: p for p in sc.layers},
+                geom, const, engine, recs, st))
+        waiting, active = list(gens), []
+        while waiting or active:
+            if waiting:
+                active.append(waiting.pop(0))  # next chunk enters, 1 behind
+            for g in list(active):
+                try:
+                    next(g)
+                except StopIteration:
+                    active.remove(g)
+        logits = torch.cat([st["logits"] for st in per_states])
+        report = NCForwardReport(
+            config.name, tuple(_merge_chunk_records(per_records, B)),
+            batch=B, concat_requant_cycles=sum(
+                st["concat_requant_cycles"] for st in per_states))
+        return (logits if batched else logits[0]), report
+
     if schedule is None:
-        occ = network_occupancy(wpack, config) if sparse else None
         schedule = sched.plan_network(specs_list, geom, batch=B,
                                       occupancy=occ, overlap=overlap,
                                       integrity=integrity,

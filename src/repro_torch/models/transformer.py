@@ -3,9 +3,13 @@
 Layers are grouped into *stages* (``plan_stages``) exactly as in the
 reference, and each stage's parameters and caches keep the reference's
 stacked layout: every leaf carries a leading layer axis ``[L, ...]``.  A
-Python loop over the layers takes the place of ``jax.lax.scan``.  This
-slice runs ``family == "dense"`` with ``frontend == "none"``; the other
-families raise ``NotImplementedError``.
+Python loop over the layers takes the place of ``jax.lax.scan``.  The
+dense, audio and vision families run the dense backbone (the audio and
+vision frontends are stubs, ``models/frontends.py``: a ``vision_patch``
+prefill takes ``embeds``); the MoE family replaces the MLP with
+``models/moe.py``'s layer (plus arctic's parallel dense MLP,
+``moe_dense_residual``).  The SSM and hybrid families raise
+``NotImplementedError``.
 
 Entry points:
     init_lm(cfg, generator, device=...)          -> params
@@ -27,12 +31,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MoE
 
 __all__ = ["plan_stages", "init_lm", "params_from_jax", "lm_apply",
            "lm_logits", "prefill", "decode_step", "init_caches", "Stage"]
 
-_FAMILIES_ITEM = ("ROADMAP Queue 1 (the MoE, SSM, hybrid and frontend "
-                  "families of the LM path)")
+_FAMILIES_ITEM = ("ROADMAP Queue 1 (the SSM and hybrid families of the LM "
+                  "path)")
+_PORTED_FAMILIES = ("dense", "audio", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,36 +68,56 @@ def plan_stages(cfg: ModelConfig) -> list[Stage]:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.frontend != "none":
+    if cfg.family not in _PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} with frontend "
-            f"{cfg.frontend!r} is not ported yet; it waits for "
-            f"{_FAMILIES_ITEM}")
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; it waits "
+            f"for {_FAMILIES_ITEM}")
 
 
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
-def _layer_init(cfg: ModelConfig, generator, device) -> dict:
-    p: dict[str, Any] = {"norm1": L.norm_init(cfg, device),
-                         "attn": L.attention_init(cfg, generator, device)}
-    if cfg.d_ff > 0:
-        p["norm2"] = L.norm_init(cfg, device)
-        p["mlp"] = L.mlp_init(cfg, generator, device=device)
+def _layer_init(cfg: ModelConfig, generator, device,
+                out: dict | None = None) -> dict:
+    """One layer's parameters or, given ``out`` (the layer's views of the
+    stacked leaves), the same draws written into it: the MoE experts drawn
+    in place, one expert at a time, every other (smaller) leaf drawn whole
+    and copied into its slot.  Returns the layer's tree."""
+    def put(name, leaf):
+        if out is None:
+            return leaf
+        _copy_into(out[name], leaf)
+        return out[name]
+
+    p: dict[str, Any] = {
+        "norm1": put("norm1", L.norm_init(cfg, device)),
+        "attn": put("attn", L.attention_init(cfg, generator, device))}
+    if cfg.is_moe:
+        p["norm2"] = put("norm2", L.norm_init(cfg, device))
+        p["moe"] = MoE.moe_init(cfg, generator, device,
+                                out=None if out is None else out["moe"])
+        if cfg.moe_dense_residual:
+            p["dense_mlp"] = put("dense_mlp", L.mlp_init(
+                cfg, generator, d_ff=cfg.dense_ff or 2 * cfg.d_model,
+                device=device))
+    elif cfg.d_ff > 0:
+        p["norm2"] = put("norm2", L.norm_init(cfg, device))
+        p["mlp"] = put("mlp", L.mlp_init(cfg, generator, device=device))
     return p
 
 
-def _stack_into(dst: dict, i: int, leaf: dict) -> None:
-    for name, v in leaf.items():
+def _copy_into(dst: dict, src: dict) -> None:
+    for name, v in src.items():
         if isinstance(v, dict):
-            _stack_into(dst[name], i, v)
+            _copy_into(dst[name], v)
         else:
-            dst[name][i] = v
+            dst[name].copy_(v)
 
 
-def _empty_stacked(leaf: dict, n: int) -> dict:
-    return {name: (_empty_stacked(v, n) if isinstance(v, dict)
-                   else v.new_empty((n,) + tuple(v.shape)))
+def _empty_stacked(leaf: dict, n: int, device) -> dict:
+    return {name: (_empty_stacked(v, n, device) if isinstance(v, dict)
+                   else torch.empty((n,) + tuple(v.shape), dtype=v.dtype,
+                                    device=device))
             for name, v in leaf.items()}
 
 
@@ -101,18 +127,20 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
     from ``generator`` (a ``torch.Generator`` on that device) with the
     reference's distributions: weights normal / sqrt(d_in), embeddings
     normal x 0.02, norms 1, biases 0, each drawn in float32 and cast to
-    ``cfg.dtype``.  Layers are drawn one at a time into the stacked leaves,
-    so the float32 draw of one layer is the only temporary."""
+    ``cfg.dtype``.  The stacked leaves are allocated first (their shapes
+    from a ``meta``-device layer) and each layer is drawn into them; the
+    MoE experts are drawn into them in place, one expert at a time.  So the
+    temporaries are one layer's other leaves and one leaf's (one expert's)
+    float32 draw, and a model that fills most of the device is never built
+    twice."""
     _check_family(cfg)
     dev = resolve_device(device)
+    template = _layer_init(cfg, None, torch.device("meta"))
     stage_params = []
     for st in plan_stages(cfg):
-        stacked = None
+        stacked = _empty_stacked(template, st.length, dev)
         for i in range(st.length):
-            one = _layer_init(cfg, generator, dev)
-            if stacked is None:
-                stacked = _empty_stacked(one, st.length)
-            _stack_into(stacked, i, one)
+            _layer_init(cfg, generator, dev, out=_index(stacked, i))
         stage_params.append(stacked)
     params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model,
@@ -181,7 +209,13 @@ def _layer_apply(cfg, lp, x, positions, window, attn_cache, cache_pos):
     a, _ = L.attention_apply(cfg, lp["attn"], h, positions, window=window,
                              cache=attn_cache, cache_pos=cache_pos)
     x = x + a
-    if cfg.d_ff > 0:
+    if cfg.is_moe:
+        h2 = L.apply_norm(cfg, lp["norm2"], x)
+        y = MoE.moe_apply(cfg, lp["moe"], h2)
+        if cfg.moe_dense_residual:
+            y = y + L.mlp_apply(cfg, lp["dense_mlp"], h2)
+        x = x + y
+    elif cfg.d_ff > 0:
         x = x + L.mlp_apply(cfg, lp["mlp"],
                             L.apply_norm(cfg, lp["norm2"], x))
     return x

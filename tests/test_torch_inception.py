@@ -169,13 +169,14 @@ def test_cuda_without_gpu_raises():
 
 
 def test_unported_options_raise(tiny):
-    """``stream_chunk`` is not ported yet; integrity and compression beside
-    an explicit schedule are ambiguous, as in the reference."""
+    """``stream_chunk``, integrity and compression beside an explicit
+    schedule are ambiguous and raise, as in the reference."""
     rc, tc, _, tparams = tiny
     x = np.zeros((tc.img, tc.img, 3), np.float32)
-    with pytest.raises(TypeError, match="stream_chunk"):
-        ti.nc_forward(tparams, x, config=tc, stream_chunk=1, device="cpu")
     net = tsched.plan_network(ti.inception_v3_specs(tc), TGEOM, batch=1)
+    with pytest.raises(ValueError, match="stream_chunk"):
+        ti.nc_forward(tparams, x, config=tc, schedule=net, stream_chunk=1,
+                      device="cpu")
     for flag in ("integrity", "compressed"):
         with pytest.raises(ValueError, match="schedule"):
             ti.nc_forward(tparams, x, config=tc, schedule=net, device="cpu",
