@@ -32,9 +32,10 @@ results go to lines before the last; each phase prints its wall):
    every head size, at B*H = 224, with outputs near cancellation (V whose
    columns sum to zero), and at the four served prompts' shapes, float32
    (rtol = atol = 1e-5) and bfloat16 (rtol = 2^-7, one bf16 ulp; atol =
-   1e-5), and at the 16 served shapes of the audio, vision and MoE
-   families (MHA 32/32 at D = 64; GQA 48/8, MHA 16/16, GQA 56/8 at D =
-   128); the build phase prints the tiles each flash route runs;
+   1e-5), and at the 21 served shapes of the audio, vision, MoE and
+   hybrid families (MHA 32/32 and GQA 25/5 at D = 64; GQA 48/8, MHA
+   16/16, GQA 56/8 at D = 128); the build phase prints the tiles each
+   flash route runs;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
@@ -79,10 +80,25 @@ results go to lines before the last; each phase prints its wall):
    top-2 logit margin is below 0.25; prints the prefill wall, the served
    attention calls' device time (CUDA events around each) and its share
    of the prefill wall, decode tokens/s and peak device memory; then the
-   same 4 requests, held the same way, served by musicgen-large,
-   internvl2-26b, moonshot-v1-16b-a3b (einsum impl) and arctic-480b at
-   full width (arctic with 2 of its 35 layers), one model on the card at
-   a time, drawn on the card from a seed; for the MoE models the
+   same 4 requests served from the int8 KV cache (``kv_dtype="int8"``)
+   and held the same way, with prefill logits bit-equal to the bf16
+   cache's run, the prefill caches' int8 payload and scales equal to
+   ``kv_quantize`` of the bf16 caches on the CPU and the attention caches
+   exactly (1 + 4/hd)/2 of the bf16 ones' bytes (the decode logits' and
+   tokens' distance from the bf16 run printed, not held); then the same 4
+   requests, held the same way, served by musicgen-large, internvl2-26b,
+   moonshot-v1-16b-a3b (einsum impl), arctic-480b (2 of its 35 layers),
+   mamba2-2.7b (no attention: 0 flash launches) and hymba-1.5b (its 3
+   global layers through the flash kernel, 25/5 heads of 64, the 29
+   sliding-window layers through the torch banded prefill and 1024-slot
+   ring caches, checked; a fifth request of 1020 tokens decodes across
+   the ring's wrap; its bf16 GEMMs round differently at batch 1 and 4, so
+   its served decode is held bit-equal to a loop at the served batch
+   shape and, in float32, within 0.00125 of a batch-1 loop; then its int8
+   KV cache as Qwen2-7B's), at full width,
+   one model on the card at a time, drawn on the card from a seed; the
+   flash launches are the full-attention layers times the requests; for
+   the MoE models the
    standalone decode loop replays the served expert choices and the
    capacity drops they imply, and every replayed choice must be the top-k
    of the served router probabilities, which must lie within 0.005 of the
@@ -111,15 +127,15 @@ results go to lines before the last; each phase prints its wall):
     and replayed between CUDA events (the host's launch overhead is
     printed apart as the eager time), and the plain version eagerly,
     beside the bound; then ``quant_matmul`` at the PTQ head,
-    ``flash_attention`` at the families' 16 served shapes and
+    ``flash_attention`` at the families' 21 served shapes and
     ``bitserial_matmul`` at the 4-bit PTQ sites' shapes (signed planes,
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
 11. one JSON line listing the four kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs
-    for ``bitserial_matmul``, the five served LMs for
-    ``flash_attention``), then the card line, then
+    for ``bitserial_matmul``, the seven served LMs and the two int8-cache
+    runs for ``flash_attention``), then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -1241,9 +1257,12 @@ def phase_times_ptq4(bsm, dev):
     return rows
 
 
-def _lm_prompts(vocab: int):
+def _lm_prompts(vocab: int, window: int = 0):
+    """LM_PROMPTS' prompts and, for a sliding-window model, one of
+    ``window - LM_WRAP_MARGIN`` tokens, seeded."""
     rng = np.random.default_rng(0)
-    return [rng.integers(2, vocab, n).astype(np.int32) for n in LM_PROMPTS]
+    lengths = LM_PROMPTS + ((window - LM_WRAP_MARGIN,) if window else ())
+    return [rng.integers(2, vocab, n).astype(np.int32) for n in lengths]
 
 
 def _top2_margin(logits: torch.Tensor) -> float:
@@ -1251,19 +1270,138 @@ def _top2_margin(logits: torch.Tensor) -> float:
     return float(top[0] - top[1])
 
 
-def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
-    """Full-width LM serving: 4 ragged prompts through ``ServingEngine``;
-    every prefill's attention through the flash-attention kernel.  Then,
+def _full_attention_layers(transformer, cfg) -> int:
+    """The layers whose prefill attention is full (``window == 0``), which
+    the flash-attention kernel runs: every layer of an attention model, the
+    global ones of a hybrid, none of an SSM."""
+    if not cfg.has_attention:
+        return 0
+    return sum(st.length for st in transformer.plan_stages(cfg)
+               if st.window == 0)
+
+
+def _lm_desc(cfg) -> str:
+    """A served LM's shape for the logs."""
+    parts = [f"{cfg.n_layers} layers", f"d_model {cfg.d_model}"]
+    if cfg.has_attention:
+        parts.append(f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}")
+    if cfg.attn_window:
+        parts.append(f"window {cfg.attn_window} outside global layers "
+                     f"{list(cfg.global_layers)}")
+    if cfg.has_ssm:
+        parts.append(f"{cfg.ssm_heads} SSM heads of {cfg.ssm_head_dim}, "
+                     f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+    parts.append(cfg.dtype)
+    if cfg.kv_dtype == "int8":
+        parts.append("int8 KV cache")
+    return ", ".join(parts)
+
+
+# hymba-1.5b's served (batch 4) decode differs from a batch-1 loop's by
+# more than LM_LOGIT_TOL in bf16 (about 0.25 on an H100): its GEMMs round
+# differently at M = 1 and M = 4, and the random-weight model amplifies one
+# bf16 rounding that far.  So its served decode is held bit-equal to a loop
+# at the served batch shape (the request's cache in every row, its tokens
+# fed to all, scalar positions: per-row positions and other rows' contents
+# may change no bit), the batch-1 loop's distance is printed, and
+# ``_float32_batch_check`` holds the same model in float32, where the
+# batch sizes' rounding is 2^16 times finer, within LM_F32_BATCH_TOL of its
+# batch-1 loop: a hundredth of LM_LOGIT_TOL, which rounding meets by far
+# and a fault of the batched path would not.
+LM_SERVED_SHAPE_LOOP = ("hymba-1.5b",)
+LM_F32_BATCH_TOL = LM_LOGIT_TOL / 100
+
+
+def _float32_batch_check(transformer, serve, cfg, params, prompts, dev):
+    """The model with its weights cast to float32 decodes prompts[0]
+    greedily at batch 1 and, fed the same tokens, in row 0 of a batch of
+    4 whose other rows hold prompts[1:4] at their own positions (per-row
+    positions, as the engine decodes); row 0's logits must lie within
+    LM_F32_BATCH_TOL of the batch-1 loop's at every step.  Returns the
+    largest difference."""
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cast(v) for v in tree]
+        return tree.float() if tree.is_floating_point() else tree
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = cast(params)
+    rows = [torch.as_tensor(p, device=dev)[None] for p in prompts[:4]]
+    logits, one = transformer.prefill(cfg32, p32, rows[0], max_len=LM_MAX_LEN)
+    want, toks, pos = [], [int(torch.argmax(logits[0]))], rows[0].shape[1]
+    for _ in range(LM_NEW_TOKENS - 1):
+        nxt = torch.tensor([[toks[-1]]], dtype=torch.int32, device=dev)
+        lg, one = transformer.decode_step(cfg32, p32, nxt, one, pos)
+        want.append(lg[0])
+        toks.append(int(torch.argmax(lg[0])))
+        pos += 1
+    del one
+    caches = transformer.init_caches(cfg32, 4, LM_MAX_LEN, device=dev)
+    for i, r in enumerate(rows):
+        _, c1 = transformer.prefill(cfg32, p32, r, max_len=LM_MAX_LEN)
+        serve._write_slot(caches, c1, i)
+    pos = torch.tensor([r.shape[1] for r in rows], dtype=torch.int32,
+                       device=dev)
+    nxt = torch.tensor([[int(r[0, -1])] for r in rows], dtype=torch.int32,
+                       device=dev)
+    worst = 0.0
+    for t in range(LM_NEW_TOKENS - 1):
+        nxt[0, 0] = toks[t]
+        lg, caches = transformer.decode_step(cfg32, p32, nxt, caches, pos)
+        worst = max(worst, (lg[0] - want[t]).abs().max().item())
+        pos += 1
+    del p32, caches
+    log(f"[lm-serve] {cfg.name} in float32: request 0's decode in row 0 of "
+        f"a batch of 4 (per-row positions) within {worst:.3g} of its "
+        f"batch-1 loop (bound {LM_F32_BATCH_TOL})")
+    if worst > LM_F32_BATCH_TOL:
+        raise AssertionError(f"{cfg.name} in float32: batch-4 decode differs "
+                             f"from batch 1 by {worst} > {LM_F32_BATCH_TOL}")
+    return worst
+
+
+def _served_shape_loop(transformer, serve, cfg, params, toks, out, batch,
+                       dev):
+    """One request's decode at the served batch shape: its prefill cache
+    written into each of ``batch`` rows, the served tokens ``out`` fed to
+    every row at scalar positions.  Returns row 0's logits, the prefill's
+    first."""
+    logits, one = transformer.prefill(cfg, params, toks, max_len=LM_MAX_LEN)
+    caches = transformer.init_caches(cfg, batch, LM_MAX_LEN, device=dev)
+    for i in range(batch):
+        serve._write_slot(caches, one, i)
+    rows, pos = [logits[0]], toks.shape[1]
+    for tok in out[:-1]:
+        nxt = torch.full((batch, 1), tok, dtype=torch.int32, device=dev)
+        lg, caches = transformer.decode_step(cfg, params, nxt, caches, pos)
+        rows.append(lg[0])
+        pos += 1
+    return rows
+
+
+def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev,
+                   record=None):
+    """Full-width LM serving: ragged prompts through ``ServingEngine``;
+    every prefill's full attention through the flash-attention kernel (a
+    sliding-window layer's banded prefill and an SSM layer run torch
+    operations).  Then,
     per request, a standalone batch-1 prefill (logits bit-equal to the
     served prefill's, so its attention inputs are the served ones) holds
     each of its attention calls against the plain version, and a standalone
     ``decode_step`` loop fed the served tokens holds every served decode
     step's logits within LM_LOGIT_TOL and its token equal to the standalone
-    pick unless that pick's top-2 margin is below 2 * LM_LOGIT_TOL.  For
+    pick unless that pick's top-2 margin is below 2 * LM_LOGIT_TOL (for
+    LM_SERVED_SHAPE_LOOP's models those are printed, and the served decode
+    is held bit-equal to ``_served_shape_loop``).  For
     an MoE model the standalone loop takes the served decode's expert
     choices and capacity drops, held as ``_RouteReplay`` says.  Returns
     the launch count, the wall and the largest bf16 difference of the
-    served attention from the plain version."""
+    served attention from the plain version; ``record``, a dict if given,
+    gets each request's tokens (``out``), served prefill and decode logits
+    (``prefill``, ``decode``) by request id and the engine's caches'
+    shapes (``cache_shapes``) and attention bytes (``attn_bytes``)."""
     engine = serve.ServingEngine(cfg, params, max_batch=4,
                                  max_len=LM_MAX_LEN, device=dev)
     replay = None
@@ -1333,11 +1471,11 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     peak = torch.cuda.max_memory_allocated(dev)
     n_tokens = sum(len(r.out) for r in done)
     decode_wall = wall - walls["prefill"]
-    log(f"[lm-serve] {cfg.name} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {cfg.dtype}, "
-        f"seeded random weights, 4 slots): {len(done)} requests, prompts "
-        f"{list(LM_PROMPTS)}, {n_tokens} tokens in {wall:.3f} s; prefill "
-        f"wall {walls['prefill']:.3f} s ({sum(LM_PROMPTS)} prompt tokens), "
+    lengths = [len(p) for p in prompts]
+    log(f"[lm-serve] {cfg.name} ({_lm_desc(cfg)}, seeded random weights, 4 "
+        f"slots): {len(done)} requests, prompts "
+        f"{lengths}, {n_tokens} tokens in {wall:.3f} s; prefill "
+        f"wall {walls['prefill']:.3f} s ({sum(lengths)} prompt tokens), "
         f"decode {decode_wall:.3f} s for {n_tokens - len(done)} tokens in "
         f"{engine.steps} steps ({(n_tokens - len(done)) / decode_wall:.1f} "
         f"tok/s); peak device memory {peak / 2**30:.2f} GiB; "
@@ -1350,9 +1488,21 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     if any(len(r.out) != LM_NEW_TOKENS for r in done):
         raise AssertionError(f"token counts {[len(r.out) for r in done]}, "
                              f"want {LM_NEW_TOKENS} each")
-    if launches != cfg.n_layers * len(prompts):
+    want_launches = _full_attention_layers(transformer, cfg) * len(prompts)
+    if launches != want_launches:
         raise AssertionError(f"flash_attention launched {launches} times, "
-                             f"want {cfg.n_layers * len(prompts)}")
+                             f"want {want_launches}")
+    if record is not None:
+        record["out"] = {r.rid: list(r.out) for r in done}
+        record["prefill"] = {
+            r.rid: served_prefill[len(prompts[r.rid])] for r in done}
+        record["decode"] = decode_logits
+        record["cache_shapes"] = [
+            {kind: {k: tuple(v.shape) for k, v in leaves.items()}
+             for kind, leaves in c.items()} for c in engine.caches]
+        record["attn_bytes"] = sum(
+            v.nbytes for c in engine.caches
+            for v in c.get("attn", {}).values())
     agree_total, near_total, worst_diff = 0, 0, 0.0
     worst_fa = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for r in sorted(done, key=lambda r: r.rid):
@@ -1411,6 +1561,18 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
                f"{cfg.n_layers * (LM_NEW_TOKENS - 1)} decode routings "
                f"replayed from the served run differed from the standalone "
                f"top-{cfg.top_k}"))
+        if cfg.name in LM_SERVED_SHAPE_LOOP:
+            shaped = _served_shape_loop(transformer, serve, cfg, params, toks,
+                                        r.out, engine.max_batch, dev)
+            for t in range(1, LM_NEW_TOKENS):
+                if not bits_equal(decode_logits[r.rid][t - 1], shaped[t]):
+                    raise AssertionError(
+                        f"request {r.rid}: served decode step {t}'s logits "
+                        f"differ from the loop at the served batch shape")
+            log(f"[lm-serve] request {r.rid}: served decode logits "
+                f"bit-equal to a loop at the served batch shape; the batch-1 "
+                f"loop's distance above is printed, not held")
+            continue
         if max(diffs) > LM_LOGIT_TOL:
             raise AssertionError(f"request {r.rid}: served decode logits "
                                  f"differ from the standalone loop's by "
@@ -1425,7 +1587,10 @@ def phase_lm_serve(transformer, serve, ops, fa, cfg, params, prompts, dev):
     log(f"[lm-serve] {agree_total} of {LM_NEW_TOKENS * len(prompts)} tokens "
         f"equal to the standalone pick ({near_total} near-ties); largest "
         f"served-vs-standalone decode logit difference {worst_diff:.4g} "
-        f"(bound {LM_LOGIT_TOL}); the {launches} served attention calls "
+        f"(bound {LM_LOGIT_TOL}"
+        + (", not held: held bit-equal at the served batch shape"
+           if cfg.name in LM_SERVED_SHAPE_LOOP else "")
+        + f"); the {launches} served attention calls "
         f"within tolerance of the plain version (bf16 max abs diff "
         f"{worst_fa[torch.bfloat16]:.3g})"
         + ("" if replay is None else f"; {replay.summary()}"))
@@ -1644,16 +1809,28 @@ def _planted_routing_faults(transformer, serve, ops, fa, moe, cfg, params,
 # parameters a layer, 55 GB in bf16 at 2 layers: one card holds no more).
 # Its decode capacity, max(int(4*2*1.25/128), 2) = 2 rows an expert for the
 # 4 slots' tokens, can drop a choice; the replay carries the drops over.
+# mamba2-2.7b and hymba-1.5b run at full width with nothing cut.
 LM_FAMILIES = [("musicgen-large", None), ("internvl2-26b", None),
-               ("moonshot-v1-16b-a3b", None), ("arctic-480b", 2)]
-# (name, B, H, Hkv, T, D) of every served prefill of the families
+               ("moonshot-v1-16b-a3b", None), ("arctic-480b", 2),
+               ("mamba2-2.7b", None), ("hymba-1.5b", None)]
+# a sliding-window model serves one more prompt, of its window less 4
+# tokens (1020 for hymba-1.5b's 1024): its decode, positions 1020..1034,
+# crosses the ring's wrap from slot 1023 to slot 0 (the 2048-token prompt
+# prefills the ring rolled)
+LM_WRAP_MARGIN = 4
+# the models served again with the int8 KV cache (``kv_dtype="int8"``)
+KV8_ARCHS = ("qwen2-7b", "hymba-1.5b")
+# (name, B, H, Hkv, T, D) of every served full-attention prefill of the
+# families (hymba-1.5b's three global layers at its five prompts)
 FA_FAMILY_SERVED = [(f"{arch} T{T}", 1, H, Hkv, T, D)
-                    for arch, H, Hkv, D in (("musicgen-large", 32, 32, 64),
-                                            ("internvl2-26b", 48, 8, 128),
-                                            ("moonshot-v1-16b-a3b", 16, 16,
-                                             128),
-                                            ("arctic-480b", 56, 8, 128))
-                    for T in LM_PROMPTS]
+                    for arch, H, Hkv, D, Ts in (
+                        ("musicgen-large", 32, 32, 64, LM_PROMPTS),
+                        ("internvl2-26b", 48, 8, 128, LM_PROMPTS),
+                        ("moonshot-v1-16b-a3b", 16, 16, 128, LM_PROMPTS),
+                        ("arctic-480b", 56, 8, 128, LM_PROMPTS),
+                        ("hymba-1.5b", 25, 5, 64,
+                         LM_PROMPTS + (1024 - LM_WRAP_MARGIN,)))
+                    for T in Ts]
 # moonshot's scatter impl against the einsum impl on one prefill.  Layer by
 # layer, on the same inputs, the two differ only by rounding: einsum rounds
 # sum_k w_k * y_k once to bf16, scatter rounds each product and the sum, and
@@ -1702,15 +1879,18 @@ def _moe_impl_check(moe, cfg, p, x, y, worst):
                              f"diff {diff.max().item()}")
 
 
-def phase_lm_family(transformer, serve, ops, fa, moe, frontends, get_config,
-                    arch, keep_layers, dev):
+def phase_lm_family(transformer, layers, serve, ops, fa, moe, frontends,
+                    get_config, arch, keep_layers, dev):
     """One full-width LM family on the card, alone: seeded init straight
-    on the device, the 4 served requests held as phase 8 holds Qwen2-7B,
-    plus internvl2-26b's prefills from stub embeddings, moonshot's scatter
-    impl against its einsum impl and, on arctic-480b (2 layers, so cheap
-    to serve again), the planted routing faults.  Returns the flash_attention
-    launches of the served run and the largest bf16 difference of the
-    served attention from the plain version."""
+    on the device, the 4 served requests (5 for a sliding-window model)
+    held as phase 8 holds Qwen2-7B, plus internvl2-26b's prefills from stub
+    embeddings, moonshot's scatter impl against its einsum impl, on
+    arctic-480b (2 layers, so cheap to serve again) the planted routing
+    faults, on hymba-1.5b its caches' slots and its float32 batch check
+    (``_float32_batch_check``) and, for KV8_ARCHS, the same
+    requests from the int8 KV cache (``phase_kv8``).  Returns the
+    flash_attention launches of each served run, by name, and the largest
+    bf16 difference of the served attention from the plain version."""
     cfg = get_config(arch)
     cut = ""
     if keep_layers is not None:
@@ -1729,9 +1909,29 @@ def phase_lm_family(transformer, serve, ops, fa, moe, frontends, get_config,
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated(dev) / gib:.2f} GiB allocated, init "
         f"peak {torch.cuda.max_memory_allocated(dev) / gib:.2f} GiB")
-    prompts = _lm_prompts(cfg.vocab_size)
+    prompts = _lm_prompts(cfg.vocab_size, cfg.attn_window)
+    record = {}
     launches, _, worst = phase_lm_serve(transformer, serve, ops, fa, cfg,
-                                        params, prompts, dev)
+                                        params, prompts, dev, record=record)
+    by_run = {arch: launches}
+    if cfg.attn_window:
+        want = [(st.length, min(st.window, LM_MAX_LEN) if st.window
+                 else LM_MAX_LEN) for st in transformer.plan_stages(cfg)]
+        got = [(c["attn"]["k"][0], c["attn"]["k"][3])
+               for c in record["cache_shapes"]]
+        log(f"[lm-families] {arch}: the engine's KV caches hold (layers, "
+            f"slots) {got} by stage (windowed stages rings of "
+            f"{cfg.attn_window}, global ones {LM_MAX_LEN})")
+        if got != want:
+            raise AssertionError(f"{arch}: cache (layers, slots) {got}, want "
+                                 f"{want}")
+    if arch in LM_SERVED_SHAPE_LOOP:
+        _float32_batch_check(transformer, serve, cfg, params, prompts, dev)
+    if arch in KV8_ARCHS:
+        by_run[f"{arch} kv8"], w8 = phase_kv8(
+            transformer, layers, serve, ops, fa, cfg, params, prompts, record,
+            dev)
+        worst = max(worst, w8)
     if arch == "arctic-480b":
         _planted_routing_faults(transformer, serve, ops, fa, moe, cfg,
                                 params, prompts, dev)
@@ -1802,7 +2002,92 @@ def phase_lm_family(transformer, serve, ops, fa, moe, frontends, get_config,
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, max(worst, worst_fa[torch.bfloat16])
+    return by_run, max(worst, worst_fa[torch.bfloat16])
+
+
+def phase_kv8(transformer, layers, serve, ops, fa, cfg, params, prompts,
+              base, dev):
+    """The same requests served from the int8 KV cache
+    (``kv_dtype="int8"``) and held as ``phase_lm_serve`` holds every model,
+    plus what follows from the reference's arithmetic: the prefill attends
+    to the float keys and values, so its logits are bit-equal to the float
+    cache's run (``base``, phase_lm_serve's record of it); the prefill
+    cache's int8 payload and scales equal ``kv_quantize`` of the float
+    cache's keys and values, on the CPU, in the written slots (zero past
+    them); the attention caches take exactly (1 + 4/hd)/2 of the float
+    caches' bytes in bf16 ((1 + 4/hd)/4 in float32).  The decode logits'
+    difference from the float run, relative to its largest |logit|, and
+    the token agreement are printed, not held: the reference bounds them
+    (0.08, 0.75) only at its reduced size.  Returns the flash_attention launches and the largest
+    bf16 difference of the served attention from the plain version."""
+    cfg8 = dataclasses.replace(cfg, kv_dtype="int8")
+    rec = {}
+    launches, _, worst = phase_lm_serve(transformer, serve, ops, fa, cfg8,
+                                        params, prompts, dev, record=rec)
+    for rid in sorted(rec["prefill"]):
+        if not bits_equal(rec["prefill"][rid], base["prefill"][rid]):
+            raise AssertionError(f"{cfg.name} kv8: request {rid}'s prefill "
+                                 f"logits differ from the float cache's")
+    slots = 0
+    for p in prompts:
+        toks = torch.as_tensor(p, device=dev)[None]
+        _, cf = transformer.prefill(cfg, params, toks, max_len=LM_MAX_LEN)
+        _, c8 = transformer.prefill(cfg8, params, toks, max_len=LM_MAX_LEN)
+        for si, (sf, s8) in enumerate(zip(cf, c8)):
+            f, q8 = sf["attn"], s8["attn"]
+            n = min(len(p), f["k"].shape[3])
+            slots += n * f["k"].shape[0]
+            for name, scale in (("k", "ks"), ("v", "vs")):
+                want_q, want_s = layers.kv_quantize(
+                    f[name][:, :, :, :n].cpu())
+                got_q, got_s = q8[name].cpu(), q8[scale].cpu()
+                if not (torch.equal(got_q[:, :, :, :n], want_q)
+                        and bits_equal(got_s[:, :, :, :n], want_s)
+                        and not got_q[:, :, :, n:].any()
+                        and not got_s[:, :, :, n:].any()):
+                    raise AssertionError(
+                        f"{cfg.name} kv8: the {len(p)}-token prefill's "
+                        f"stage {si} {name} cache is not kv_quantize of the "
+                        f"float cache's")
+        del cf, c8
+    # the float cache holds hd elements of es bytes a (position, head), the
+    # int8 one hd bytes and a 4-byte scale: (1 + 4/hd)/es of its bytes
+    hd, es = cfg.hd, torch.empty((), dtype=cfg.jdtype).element_size()
+    if rec["attn_bytes"] * es * hd != base["attn_bytes"] * (hd + 4):
+        raise AssertionError(f"{cfg.name} kv8: attention caches "
+                             f"{rec['attn_bytes']} bytes against the float "
+                             f"{base['attn_bytes']}, want (1 + 4/{hd})/{es}")
+    # each run decodes greedily on its own tokens, as the reference's test
+    # does; rows up to the first token where the two runs part have the
+    # same inputs, so their distance is the int8 cache's own error
+    rel, rel_same, same, agree, total = 0.0, 0.0, 0, 0, 0
+    for rid in sorted(rec["out"]):
+        rows8 = [rec["prefill"][rid]] + rec["decode"][rid]
+        rowsf = [base["prefill"][rid]] + base["decode"][rid]
+        top = max(r.float().abs().max().item() for r in rowsf)
+        diffs = [(a.float() - b.float()).abs().max().item() / top
+                 for a, b in zip(rows8, rowsf)]
+        toks8, toksf = rec["out"][rid], base["out"][rid]
+        parted = next((t for t, (a, b) in enumerate(zip(toks8, toksf))
+                       if a != b), len(toks8) - 1)
+        rel = max(rel, max(diffs))
+        rel_same = max(rel_same, max(diffs[1:parted + 1], default=0.0))
+        same += parted
+        agree += sum(a == b for a, b in zip(toks8, toksf))
+        total += len(toks8)
+    log(f"[lm-kv8] {cfg.name}: prefill logits bit-equal to the float "
+        f"cache's for all {len(prompts)} requests; the int8 payload and "
+        f"scales of {slots} (layer, slot) positions equal kv_quantize of "
+        f"the float prefill caches on the CPU; attention caches "
+        f"{rec['attn_bytes'] / 2**20:.1f} MiB against "
+        f"{base['attn_bytes'] / 2**20:.1f} MiB ((1 + 4/{hd})/{es} = "
+        f"{(1 + 4 / hd) / es:.4f}); not held at full width: decode logits "
+        f"differ from the float cache's run by {rel:.4f} of its largest "
+        f"|logit| (the reference's reduced-size bound 0.08), by "
+        f"{rel_same:.4f} over the {same} decode steps fed the same tokens "
+        f"by both runs, {agree} of {total} tokens equal "
+        f"({agree / total:.3f}; bound there 0.75)")
+    return launches, worst
 
 
 def phase_flash_family_shapes(fa, dev):
@@ -1818,8 +2103,9 @@ def phase_flash_family_shapes(fa, dev):
             v = torch.randn((B, Hkv, T, D), generator=g).to(dtype).to(dev)
             _flash_compare(fa, q, k, v, True, worst, f"{name} {dtype}")
     log(f"[kernel-fa] {2 * len(FA_FAMILY_SERVED)} cases at the families' "
-        f"served shapes (MHA 32/32 at D = 64, GQA 48/8, MHA 16/16, GQA 56/8 "
-        f"at D = 128; T {list(LM_PROMPTS)}) within tolerance of the plain "
+        f"served shapes (MHA 32/32 and GQA 25/5 at D = 64, GQA 48/8, MHA "
+        f"16/16, GQA 56/8 at D = 128; T {list(LM_PROMPTS)}, and 1020 for "
+        f"25/5) within tolerance of the plain "
         f"version (f32 max abs diff {worst[torch.float32]:.3g}; bf16 "
         f"{worst[torch.bfloat16]:.3g})")
     return worst[torch.float32], worst[torch.bfloat16]
@@ -2129,18 +2415,25 @@ def main() -> int:
     lm_params = timed("lm-init", lambda: transformer.init_lm(
         lm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
     prompts = _lm_prompts(lm_cfg.vocab_size)
+    lm_record = {}
     launches_fa, _, worst_served = timed(
         "lm-serve", phase_lm_serve, transformer, serve, ops, fa, lm_cfg,
-        lm_params, prompts, dev)
+        lm_params, prompts, dev, lm_record)
     worst_fa = max(worst_fa, worst_served)
+    fa_by_path = {LM_ARCH: launches_fa}
+    fa_by_path[f"{LM_ARCH} kv8"], worst_served = timed(
+        "lm-kv8", phase_kv8, transformer, layers, serve, ops, fa, lm_cfg,
+        lm_params, prompts, lm_record, dev)
+    worst_fa = max(worst_fa, worst_served)
+    del lm_record
     launches_qm = timed("lm-ptq", phase_lm_ptq, transformer, layers, ptq,
                         ops, qm, bsm, lm_cfg, lm_params, prompts, dev)
     del lm_params
-    fa_by_path = {LM_ARCH: launches_fa}
     for arch, keep_layers in LM_FAMILIES:
-        n, w = timed(f"lm-{arch}", phase_lm_family, transformer, serve, ops,
-                     fa, moe, frontends, get_config, arch, keep_layers, dev)
-        fa_by_path[arch] = n
+        by_run, w = timed(f"lm-{arch}", phase_lm_family, transformer, layers,
+                          serve, ops, fa, moe, frontends, get_config, arch,
+                          keep_layers, dev)
+        fa_by_path.update(by_run)
         worst_fa = max(worst_fa, w)
     log(f"[lm-families] flash_attention launches by served model: "
         f"{fa_by_path}")

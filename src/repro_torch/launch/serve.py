@@ -3,10 +3,11 @@ Cache batched image inference (the port of ``repro.launch.serve``).
 
 The LM path (:class:`ServingEngine`) is the standard production pattern:
 requests queue up; up to ``max_batch`` active sequences share the fixed
-decode batch; each admitted request is prefilled on its own (its attention
-through the flash-attention kernel) and its KV cache written into its
-slot's row; one ``decode_step`` then advances every active slot one token,
-each at its own position; finished sequences free their slot.  A failed
+decode batch; each admitted request is prefilled on its own (its full
+attention through the flash-attention kernel) and its caches (KV, ring,
+int8 or SSM state) written into its slot's row; one ``decode_step`` then
+advances every active slot one token, each at its own position; finished
+sequences free their slot.  A failed
 prefill fails that one request; a failed decode fails the active batch.
 
 The Neural Cache path (:class:`NCServingEngine`) admits queued image
@@ -20,6 +21,7 @@ batches from the cycle model calibrated against measured batch walls.
 Usage:
     python -m repro_torch.launch.serve --arch qwen2-7b --requests 4
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --max-len 2112
+    python -m repro_torch.launch.serve --arch hymba-1.5b --max-len 2112
     python -m repro_torch.launch.serve --arch qwen2-7b --reduced --device cpu
     python -m repro_torch.launch.serve --neural-cache --requests 8
     python -m repro_torch.launch.serve --neural-cache --full --requests 4 --max-batch 2
@@ -591,8 +593,8 @@ def _main_lm(args) -> int:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(REGISTRY),
-                    help="serve this LM (dense, audio, vision and MoE "
-                         "families) with seeded random weights")
+                    help="serve this LM (any family: dense, audio, vision, "
+                         "MoE, SSM, hybrid) with seeded random weights")
     ap.add_argument("--neural-cache", action="store_true",
                     help="serve Inception images through the Neural Cache "
                          "emulation instead of an LM")

@@ -1,14 +1,18 @@
 """Transformer building blocks (the port of ``repro.models.layers``).
 
-Parameters are plain dicts of tensors, as the reference's pytrees.  On the
-CPU, :func:`flash_attention` is the reference's tiled scan (causal, banded
-``window``, ``q_offset``, ``kv_valid``); on a CUDA device the LM's full
-prefill (``window == 0``, ``q_offset == 0``, no ``kv_valid``) runs the
-hand-written flash-attention kernel through
-:func:`repro_torch.kernels.ops.flash_attention`, and any other argument
-raises.  KV caches are bfloat16 (``cfg.kv_dtype``) dicts ``{"k", "v"}`` of
-``[B, Hkv, W, D]``; prefill and decode write them in place (and return
-them) instead of building new arrays as the reference does.
+Parameters are plain dicts of tensors, as the reference's pytrees.
+:func:`flash_attention` is the reference's tiled scan (causal, banded
+``window``, ``q_offset``, ``kv_valid``) on the CPU, and the banded
+(sliding-window) prefill on any device; on a CUDA device the full prefill
+(``window == 0``, ``q_offset == 0``, no ``kv_valid``) runs the hand-written
+flash-attention kernel through :func:`repro_torch.kernels.ops.flash_attention`,
+and ``q_offset`` or ``kv_valid`` raise.  KV caches are dicts ``{"k", "v"}``
+of ``[B, Hkv, W, D]`` in ``cfg.dtype`` or, for ``cfg.kv_dtype == "int8"``,
+int8 payloads with float32 per-(position, head) scales ``{"ks", "vs"}`` of
+``[B, Hkv, W, 1]``; a sliding-window layer's cache is a ring of
+``W = min(window, seq_len)`` slots (absolute position p at slot p % W).
+Prefill and decode write the caches in place (and return them) instead of
+building new arrays as the reference does.
 """
 from __future__ import annotations
 
@@ -23,10 +27,9 @@ from repro_torch.kernels import ops
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm", "norm_init",
            "apply_norm", "rope_freqs", "apply_rope", "attention_init",
            "flash_attention", "decode_attention", "attention_apply",
-           "attention_cache_init", "mlp_init", "mlp_apply"]
+           "attention_cache_init", "kv_quantize", "decode_attention_q8",
+           "mlp_init", "mlp_apply"]
 
-_HYBRID_ITEM = ("ROADMAP Queue 1, the hybrid/SWA slice (banded attention, "
-                "ring-buffer decode, the int8 KV cache)")
 _F32 = torch.float32
 
 
@@ -176,20 +179,23 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_chunk: int = 1024):
     """Tiled flash attention (GQA): q [B, H, Tq, D], k/v [B, Hkv, Tk, D].
 
-    On a CUDA device only the full prefill (``window == 0``,
-    ``q_offset == 0``, ``kv_valid is None``) is available, through the
-    flash-attention kernel; anything else raises ``NotImplementedError``.
-    On the CPU this is the reference's scan; ``window > 0`` takes the
-    banded path (a fixed ``window + q_chunk`` KV strip per Q tile).
+    On a CUDA device the full prefill (``window == 0``) runs the
+    flash-attention kernel, and ``q_offset`` or ``kv_valid`` raise
+    ``NotImplementedError``.  Otherwise this is the reference's scan, on
+    the operands' device; ``window > 0`` takes the banded path (a fixed
+    ``window + q_chunk`` KV strip per Q tile), which the reference also
+    computes outside its Pallas kernel.
     """
-    if q.device.type != "cpu":
-        if window > 0 or not _is_zero(q_offset) or kv_valid is not None:
+    dev = q.device
+    if dev.type != "cpu":
+        if not _is_zero(q_offset) or kv_valid is not None:
             raise NotImplementedError(
-                "on a GPU, flash_attention runs the full causal/non-causal "
-                "prefill only (window=0, q_offset=0, kv_valid=None); the "
-                f"other variants wait for {_HYBRID_ITEM}")
-        return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), causal=causal).to(v.dtype)
+                "on a GPU, flash_attention runs the prefill from position 0 "
+                "over every key (q_offset=0, kv_valid=None)")
+        if window == 0:
+            return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(),
+                                       causal=causal).to(v.dtype)
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -206,17 +212,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     big = torch.iinfo(torch.int32).max
     tiles = []
 
+    def arange(n):
+        return torch.arange(n, device=dev)
+
     if window > 0:
         # banded: strip width rounded up to kv_chunk multiple
         strip = int(math.ceil((window + q_chunk) / kv_chunk)) * kv_chunk
         strip = min(strip, Tk)
         for i in range(nq):
             qi = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
-            qpos = i * q_chunk + torch.arange(q_chunk) + q_offset
+            qpos = i * q_chunk + arange(q_chunk) + q_offset
             start = int(min(max(i * q_chunk + q_offset - (strip - q_chunk), 0),
                             Tk - strip))
             ks, vs = k[:, :, start:start + strip], v[:, :, start:start + strip]
-            kpos = start + torch.arange(strip)
+            kpos = start + arange(strip)
             kpos = torch.where(kpos < kv_valid, kpos, big)
             m, l, acc = _tile_attn(qi, ks, vs, qpos, kpos, window)
             tiles.append(acc / torch.clamp_min(l, 1e-30)[..., None])
@@ -228,16 +237,18 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         nk = k.shape[2] // kv_chunk
         for i in range(nq):
             qi = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
-            qpos = i * q_chunk + torch.arange(q_chunk) + q_offset
+            qpos = i * q_chunk + arange(q_chunk) + q_offset
             if not causal:
                 qpos = torch.full_like(qpos, big // 2)
-            m = torch.full((B, Hkv, G, q_chunk), -torch.inf, dtype=_F32)
-            l = torch.zeros((B, Hkv, G, q_chunk), dtype=_F32)
-            acc = torch.zeros((B, Hkv, G, q_chunk, D), dtype=_F32)
+            m = torch.full((B, Hkv, G, q_chunk), -torch.inf, dtype=_F32,
+                           device=dev)
+            l = torch.zeros((B, Hkv, G, q_chunk), dtype=_F32, device=dev)
+            acc = torch.zeros((B, Hkv, G, q_chunk, D), dtype=_F32,
+                              device=dev)
             for j in range(nk):
                 kj = k[:, :, j * kv_chunk:(j + 1) * kv_chunk]
                 vj = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
-                kpos = j * kv_chunk + torch.arange(kv_chunk)
+                kpos = j * kv_chunk + arange(kv_chunk)
                 kpos = torch.where(kpos < kv_valid, kpos, big)
                 mj, lj, accj = _tile_attn(qi, kj, vj, qpos, kpos, 0)
                 m_new = torch.maximum(m, mj)
@@ -274,6 +285,21 @@ def _decode_mask(pos, S: int, window: int = 0):
     return mask[None, None, None, None]
 
 
+def _ring_mask(ring_slot, ring_len, S: int):
+    """Slot-age mask for SWA ring caches, scalar or per-row ``[B]``
+    vector: the slot ``ring_slot`` holds the newest key, and the
+    ``ring_len`` newest slots (ages ``(ring_slot - slot) mod S``, floor
+    modulo) are attended."""
+    ring_slot = torch.as_tensor(ring_slot)
+    ring_len = torch.as_tensor(ring_len, device=ring_slot.device)
+    kpos = torch.arange(S, device=ring_slot.device)
+    if ring_slot.ndim > 0:
+        age = torch.remainder(ring_slot[:, None] - kpos[None, :], S)
+        return (age < ring_len[:, None])[:, None, None, None, :]
+    age = torch.remainder(ring_slot - kpos, S)  # 0 = newest
+    return (age < ring_len)[None, None, None, None]
+
+
 def _cache_row_update(cache_arr, new_vals, slot):
     """Write each batch row's single-position update at its OWN cache slot,
     in place: ``cache_arr`` [B,Hkv,W,*], ``new_vals`` [B,Hkv,1,*], ``slot``
@@ -286,56 +312,109 @@ def _cache_row_update(cache_arr, new_vals, slot):
     return cache_arr
 
 
+def _cache_write(cache: dict, new: dict, slot) -> None:
+    """Write the single-position leaves ``new`` ([B,Hkv,1,*] each) into
+    ``cache`` in place, at ``slot``: an int shared by every row (clamped to
+    the cache like ``dynamic_update_slice``) or an int32 ``[B]`` vector."""
+    for name, val in new.items():
+        if torch.is_tensor(slot):
+            _cache_row_update(cache[name], val, slot)
+        else:
+            W = cache[name].shape[2]
+            s0 = min(max(slot, 0), W - 1)
+            cache[name][:, :, s0:s0 + 1] = val.to(cache[name].dtype)
+
+
+def _attend(q, k_cache, v_cache, mask, scale):
+    """Single-token attention of q [B,H,1,D] over a [B,Hkv,S,D] cache
+    under ``mask`` (broadcast to [B,Hkv,G,1,S]); float32 scores and
+    products, the probabilities rounded to the cache's dtype for P.V;
+    returns float32 [B,H,1,D]."""
+    B, H, _, D = q.shape
+    Hkv = k_cache.shape[1]
+    qg = q.reshape(B, Hkv, H // Hkv, 1, D)
+    s = _einsum_f32("bhgqd,bhkd->bhgqk", qg, k_cache) * scale
+    s = torch.where(mask.to(s.device), s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    out = _einsum_f32("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, H, 1, D)
+
+
 def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     """Single-token attention over a [B,Hkv,S,D] cache; pos = current
     index (scalar, or int32 [B] per-row positions)."""
-    B, H, _, D = q.shape
-    Hkv, S = k_cache.shape[1], k_cache.shape[2]
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, 1, D)
-    scale = 1.0 / math.sqrt(D)
-    s = _einsum_f32("bhgqd,bhkd->bhgqk", qg, k_cache) * scale
-    s = torch.where(_decode_mask(pos, S, window).to(s.device), s, -torch.inf)
-    p = torch.softmax(s, dim=-1)
-    out = _einsum_f32("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(B, H, 1, D).to(v_cache.dtype)
+    S, D = k_cache.shape[2], q.shape[-1]
+    out = _attend(q, k_cache, v_cache, _decode_mask(pos, S, window),
+                  1.0 / math.sqrt(D))
+    return out.to(v_cache.dtype)
 
 
 def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
                     cache_pos=None):
     """Returns (out [B,T,d], cache or None).
 
-    cache: dict(k=[B,Hkv,W,D], v=...), written in place — decode writes
-    position ``cache_pos`` (an int, or an int32 ``[B]`` vector of per-slot
-    positions); prefill writes the prompt's keys and values from slot 0.
+    The cache (``attention_cache_init``) is written in place.  Decode
+    writes position ``cache_pos`` (an int, or an int32 ``[B]`` vector of
+    per-slot positions) at slot ``cache_pos % W`` of a sliding-window ring
+    and at slot ``cache_pos`` otherwise.  Prefill writes the prompt's keys
+    and values from slot 0; into a ring shorter than the prompt it writes
+    the last W, rolled by ``T % W`` so that position p lies at slot p % W.
+    An int8 cache takes ``kv_quantize`` of them.
     """
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError(
-            f"the int8 KV cache waits for {_HYBRID_ITEM}")
-    if cache is not None and window > 0:
-        raise NotImplementedError(
-            f"sliding-window (ring) caches wait for {_HYBRID_ITEM}")
     B, T, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
+    kv8 = cfg.kv_dtype == "int8"
     if cache is not None and T == 1:
-        per_row = torch.as_tensor(cache_pos).ndim > 0
-        if per_row:
-            slot = torch.as_tensor(cache_pos, dtype=torch.int32).reshape(-1)
-            _cache_row_update(cache["k"], k, slot)
-            _cache_row_update(cache["v"], v, slot)
+        W = cache["k"].shape[2]
+        if torch.as_tensor(cache_pos).ndim > 0:  # int32 [B] per-slot
+            cache_pos = torch.as_tensor(cache_pos, dtype=torch.int32)
+            cache_pos = cache_pos.reshape(-1).to(x.device)
+            slot, ring_len = cache_pos, None
+            if window > 0:
+                slot = torch.remainder(cache_pos, W)
+                ring_len = torch.clamp_max(cache_pos + 1, min(window, W))
         else:
-            W = cache["k"].shape[2]
-            s0 = min(max(int(cache_pos), 0), W - 1)
-            cache["k"][:, :, s0:s0 + 1] = k.to(cache["k"].dtype)
-            cache["v"][:, :, s0:s0 + 1] = v.to(cache["v"].dtype)
-        out = decode_attention(q, cache["k"], cache["v"], cache_pos, window=0)
+            slot = cache_pos = int(cache_pos)
+            ring_len = None
+            if window > 0:
+                slot, ring_len = cache_pos % W, min(cache_pos + 1, window, W)
+        if kv8:
+            kq, ks1 = kv_quantize(k)
+            vq, vs1 = kv_quantize(v)
+            _cache_write(cache, {"k": kq, "v": vq, "ks": ks1, "vs": vs1},
+                         slot)
+            ring = (dict(ring_slot=slot, ring_len=ring_len) if window > 0
+                    else {})
+            out = decode_attention_q8(q, cache["k"], cache["ks"], cache["v"],
+                                      cache["vs"], cache_pos, **ring)
+        else:
+            _cache_write(cache, {"k": k, "v": v}, slot)
+            if window > 0:
+                # ring buffer: positions are implicit; mask by slot age
+                out = _attend(q, cache["k"], cache["v"],
+                              _ring_mask(slot, ring_len, W),
+                              1.0 / math.sqrt(cfg.hd))
+            else:
+                out = decode_attention(q, cache["k"], cache["v"], cache_pos)
+        out = out.to(x.dtype)
     else:
         out = flash_attention(q, k, v, causal=True, window=window,
                               q_chunk=cfg.attn_chunk_q,
                               kv_chunk=cfg.attn_chunk_kv)
         if cache is not None:  # prefill into cache
-            cache["k"][:, :, :T] = k.to(cache["k"].dtype)
-            cache["v"][:, :, :T] = v.to(cache["v"].dtype)
+            W = cache["k"].shape[2]
+            if window > 0 and W < T:
+                # ring layout: absolute position p lives at slot p % W
+                k = torch.roll(k[:, :, -W:], T % W, dims=2)
+                v = torch.roll(v[:, :, -W:], T % W, dims=2)
+            new = {"k": k, "v": v}
+            if kv8:
+                kq, ks1 = kv_quantize(k)
+                vq, vs1 = kv_quantize(v)
+                new = {"k": kq, "v": vq, "ks": ks1, "vs": vs1}
+            n = k.shape[2]
+            for name, val in new.items():
+                cache[name][:, :, :n] = val.to(cache[name].dtype)
     Tq = out.shape[2]
     out = out.transpose(1, 2).reshape(B, Tq, cfg.n_heads * cfg.hd)
     return out @ p["wo"], cache
@@ -343,13 +422,79 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
 
 def attention_cache_init(cfg: ModelConfig, batch: int, seq_len: int,
                          window: int, device=None) -> dict:
-    if cfg.kv_dtype == "int8":
-        raise NotImplementedError(
-            f"the int8 KV cache waits for {_HYBRID_ITEM}")
     W = min(window, seq_len) if window > 0 else seq_len
     shape = (batch, cfg.n_kv_heads, W, cfg.hd)
+    if cfg.kv_dtype == "int8":
+        # the paper's in-cache 8-bit layout for the KV cache: int8 payload
+        # + per-(position, head) f32 scales (~1.5% overhead at hd=128)
+        scales = shape[:3] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(scales, dtype=_F32, device=device),
+                "vs": torch.zeros(scales, dtype=_F32, device=device)}
     return {"k": torch.zeros(shape, dtype=cfg.jdtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.jdtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache helpers (kv_dtype="int8")
+# ---------------------------------------------------------------------------
+def _per_127(x: torch.Tensor) -> torch.Tensor:
+    """``x / 127`` correctly rounded on every device: CUDA divides a tensor
+    by a Python number as a product with its reciprocal, which can differ
+    in the last bit, so the divisor is a tensor on x's device."""
+    return x / torch.full((), 127.0, dtype=x.dtype, device=x.device)
+
+
+def kv_quantize(x: torch.Tensor):
+    """[B,Hkv,T,D] -> (int8 values, f32 [B,Hkv,T,1] per-(pos,head) scales):
+    symmetric, max |x| to 127, rounded half to even as ``jnp.round``."""
+    xf = x.to(_F32)
+    scale = _per_127(torch.clamp_min(
+        torch.amax(torch.abs(xf), dim=-1, keepdim=True), 1e-12))
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _int8_einsum(eq: str, a, b):
+    """``einsum`` of two int8 operands with the reference's int32
+    accumulation, converted to float32: the products are summed in float64,
+    where every partial sum is an integer below 2^53 and so exact in any
+    order, then rounded to float32 as the int32 sum would be.  (The CPU's
+    int8 ``einsum`` returns int8, and CUDA has no int8 batched matmul.)"""
+    return torch.einsum(eq, a.to(torch.float64), b.to(torch.float64)).to(_F32)
+
+
+def decode_attention_q8(q, kq, ks, vq, vs, pos, window: int = 0,
+                        ring_slot=None, ring_len=None):
+    """Single-token attention on an int8 cache, integer products throughout.
+
+    QK^T runs int8 x int8 -> int32 (exact), scaled by the query's and the
+    per-position key scales; the softmax probabilities absorb the
+    per-position *value* scales and are requantized to int8 for the PV
+    product.  ``ring_slot``/``ring_len`` mask a sliding-window ring by slot
+    age; otherwise ``pos`` (and ``window``) mask causally.  Returns float32
+    [B,H,1,D].
+    """
+    B, H, _, D = q.shape
+    Hkv, S = kq.shape[1], kq.shape[2]
+    qq, qs = kv_quantize(q.reshape(B, Hkv, H // Hkv, 1, D))
+    s_int = _int8_einsum("bhgqd,bhkd->bhgqk", qq, kq)
+    # scales: qs [B,Hkv,G,1,1] x ks [B,Hkv,S,1] -> [B,Hkv,1,1,S]
+    s = (s_int * qs * ks[..., 0][:, :, None, None, :]) / math.sqrt(D)
+    if ring_slot is not None:  # SWA ring buffer: mask by slot age
+        mask = _ring_mask(ring_slot, ring_len, S)
+    else:
+        mask = _decode_mask(pos, S, window)
+    s = torch.where(mask.to(s.device), s, -torch.inf)
+    p = torch.softmax(s, dim=-1)  # [B,Hkv,G,1,S]
+    # fold per-position value scales into p, requantize rows to int8
+    pv = p * vs[..., 0][:, :, None, None, :]
+    p_scale = _per_127(torch.clamp_min(torch.amax(pv, dim=-1, keepdim=True),
+                                       1e-12))
+    pq = torch.clamp(torch.round(pv / p_scale), 0, 127).to(torch.int8)
+    out = _int8_einsum("bhgqk,bhkd->bhgqd", pq, vq) * p_scale
+    return out.reshape(B, H, 1, D)
 
 
 # ---------------------------------------------------------------------------

@@ -8,8 +8,10 @@ dense, audio and vision families run the dense backbone (the audio and
 vision frontends are stubs, ``models/frontends.py``: a ``vision_patch``
 prefill takes ``embeds``); the MoE family replaces the MLP with
 ``models/moe.py``'s layer (plus arctic's parallel dense MLP,
-``moe_dense_residual``).  The SSM and hybrid families raise
-``NotImplementedError``.
+``moe_dense_residual``); the SSM family's layers are Mamba-2 mixers
+(``models/mamba2.py``) and the hybrid family's run attention and the mixer
+in parallel, with sliding-window (ring-cache) attention outside the global
+layers.
 
 Entry points:
     init_lm(cfg, generator, device=...)          -> params
@@ -18,7 +20,9 @@ Entry points:
     prefill(cfg, params, tokens, max_len=...)    -> (last_logits, caches)
     decode_step(cfg, params, tokens, caches, pos) -> (logits, caches)
 
-Caches are written in place and returned.
+Caches are written in place and returned: the attention layers write
+their slots, and the mixers' new ``conv`` and ``ssm`` state is copied into
+the stacked leaves.
 """
 from __future__ import annotations
 
@@ -31,14 +35,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 
 __all__ = ["plan_stages", "init_lm", "params_from_jax", "lm_apply",
            "lm_logits", "prefill", "decode_step", "init_caches", "Stage"]
-
-_FAMILIES_ITEM = ("ROADMAP Queue 1 (the SSM and hybrid families of the LM "
-                  "path)")
-_PORTED_FAMILIES = ("dense", "audio", "vlm", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,13 +68,6 @@ def plan_stages(cfg: ModelConfig) -> list[Stage]:
     return stages
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; it waits "
-            f"for {_FAMILIES_ITEM}")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -86,12 +80,21 @@ def _layer_init(cfg: ModelConfig, generator, device,
     def put(name, leaf):
         if out is None:
             return leaf
-        _copy_into(out[name], leaf)
+        if isinstance(leaf, dict):
+            _copy_into(out[name], leaf)
+        else:
+            out[name].copy_(leaf)
         return out[name]
 
-    p: dict[str, Any] = {
-        "norm1": put("norm1", L.norm_init(cfg, device)),
-        "attn": put("attn", L.attention_init(cfg, generator, device))}
+    p: dict[str, Any] = {"norm1": put("norm1", L.norm_init(cfg, device))}
+    if cfg.has_attention:
+        p["attn"] = put("attn", L.attention_init(cfg, generator, device))
+    if cfg.has_ssm:
+        p["ssm"] = put("ssm", M.mamba_init(cfg, generator, device))
+    if cfg.family == "hybrid":
+        for name in ("beta_attn", "beta_ssm"):
+            p[name] = put(name, torch.ones((), dtype=torch.float32,
+                                           device=device))
     if cfg.is_moe:
         p["norm2"] = put("norm2", L.norm_init(cfg, device))
         p["moe"] = MoE.moe_init(cfg, generator, device,
@@ -132,8 +135,9 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
     MoE experts are drawn into them in place, one expert at a time.  So the
     temporaries are one layer's other leaves and one leaf's (one expert's)
     float32 draw, and a model that fills most of the device is never built
-    twice."""
-    _check_family(cfg)
+    twice.  Each leaf keeps the layer's dtype: the mixers' ``A_log``, ``D``
+    and ``dt_bias`` and the hybrid's ``beta_attn``/``beta_ssm`` (stacked to
+    ``[L]``) are float32."""
     dev = resolve_device(device)
     template = _layer_init(cfg, None, torch.device("meta"))
     stage_params = []
@@ -183,16 +187,23 @@ def params_from_jax(params_np, *, device: str | torch.device | None = None):
 # ---------------------------------------------------------------------------
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                 device: str | torch.device | None = None) -> list[dict]:
-    """Per-stage stacked caches ``{"attn": {"k", "v"}}`` of
-    ``[L, batch, Hkv, seq_len, hd]`` zeros on ``device`` (default
-    ``"cuda"``)."""
-    _check_family(cfg)
+    """Per-stage stacked caches, every leaf ``[L, batch, ...]`` zeros on
+    ``device`` (default ``"cuda"``): ``{"attn": {"k", "v"}}`` (plus
+    ``"ks"``, ``"vs"`` for the int8 cache) of ``seq_len`` slots, or of
+    ``min(window, seq_len)`` ring slots in a sliding-window stage, and for
+    the SSM and hybrid families ``{"ssm": {"conv", "ssm"}}``."""
     dev = resolve_device(device)
     caches = []
     for st in plan_stages(cfg):
-        one = L.attention_cache_init(cfg, batch, seq_len, st.window, dev)
-        caches.append({"attn": {k: v.new_zeros((st.length,) + tuple(v.shape))
-                                for k, v in one.items()}})
+        c: dict[str, Any] = {}
+        if cfg.has_attention:
+            c["attn"] = L.attention_cache_init(cfg, batch, seq_len, st.window,
+                                               dev)
+        if cfg.has_ssm:
+            c["ssm"] = M.mamba_cache_init(cfg, batch, dev)
+        caches.append({kind: {k: v.new_zeros((st.length,) + tuple(v.shape))
+                              for k, v in one.items()}
+                       for kind, one in c.items()})
     return caches
 
 
@@ -204,11 +215,35 @@ def _index(tree: dict, i: int) -> dict:
             for k, v in tree.items()}
 
 
-def _layer_apply(cfg, lp, x, positions, window, attn_cache, cache_pos):
+def _mixer(cfg, p, h, cache):
+    """The Mamba-2 mixer on h; given ``cache`` (the layer's views of the
+    stacked ``conv``/``ssm`` leaves) its new state is copied into it.  A
+    single token with a cache is a decode step (also a one-token prompt,
+    on the zero cache, as in the reference)."""
+    if h.shape[1] == 1 and cache is not None:
+        s, new = M.mamba_step(cfg, p, h, cache)
+    else:
+        s, new = M.mamba_apply(cfg, p, h, cache=cache)
+    if cache is not None:
+        for name, val in new.items():
+            cache[name].copy_(val)
+    return s
+
+
+def _layer_apply(cfg, lp, x, positions, window, cache, cache_pos):
     h = L.apply_norm(cfg, lp["norm1"], x)
-    a, _ = L.attention_apply(cfg, lp["attn"], h, positions, window=window,
-                             cache=attn_cache, cache_pos=cache_pos)
-    x = x + a
+    cache = cache or {}
+    if cfg.has_attention:
+        a, _ = L.attention_apply(cfg, lp["attn"], h, positions, window=window,
+                                 cache=cache.get("attn"), cache_pos=cache_pos)
+    if cfg.has_ssm:
+        s = _mixer(cfg, lp["ssm"], h, cache.get("ssm"))
+    if cfg.family == "hybrid":
+        ba = lp["beta_attn"].to(x.dtype)
+        bs = lp["beta_ssm"].to(x.dtype)
+        x = x + (ba * a + bs * s) / (ba + bs)
+    else:
+        x = x + (s if cfg.has_ssm else a)
     if cfg.is_moe:
         h2 = L.apply_norm(cfg, lp["norm2"], x)
         y = MoE.moe_apply(cfg, lp["moe"], h2)
@@ -221,13 +256,13 @@ def _layer_apply(cfg, lp, x, positions, window, attn_cache, cache_pos):
     return x
 
 
-def _stage_apply(cfg, stacked, x, positions, window, cache, cache_pos):
-    """Run the stacked layers of one stage in order (the reference's scan);
-    the stage's cache, if any, is written in place."""
-    for i in range(stacked["attn"]["wq"].shape[0]):
-        ac = _index(cache["attn"], i) if cache is not None else None
-        x = _layer_apply(cfg, _index(stacked, i), x, positions, window, ac,
-                         cache_pos)
+def _stage_apply(cfg, stacked, x, positions, st: Stage, cache, cache_pos):
+    """Run the ``st.length`` stacked layers of one stage in order (the
+    reference's scan); the stage's cache, if any, is written in place."""
+    for i in range(st.length):
+        lc = _index(cache, i) if cache is not None else None
+        x = _layer_apply(cfg, _index(stacked, i), x, positions, st.window,
+                         lc, cache_pos)
     return x, cache
 
 
@@ -245,15 +280,14 @@ def _head(cfg, params, h):
 def lm_apply(cfg, params, tokens=None, *, embeds=None, positions=None,
              caches=None, cache_pos=None):
     """Backbone forward.  Returns (hidden [B,T,d], caches or None)."""
-    _check_family(cfg)
     x = _embed(cfg, params, tokens, embeds)
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)
     for si, st in enumerate(plan_stages(cfg)):
         cache = caches[si] if caches is not None else None
-        x, _ = _stage_apply(cfg, params["stages"][si], x, positions,
-                            st.window, cache, cache_pos)
+        x, _ = _stage_apply(cfg, params["stages"][si], x, positions, st,
+                            cache, cache_pos)
     x = L.apply_norm(cfg, params["final_norm"], x)
     return x, caches
 

@@ -3,9 +3,9 @@ reference, at reduced ``musicgen-large`` (MHA, layernorm, gelu, EnCodec
 token ids) and ``internvl2-26b`` (GQA, rmsnorm, swiglu, precomputed patch
 embeddings), float32, with the reference's weights carried across by
 ``params_from_jax``.  Prefill by tokens and by embeddings, decode steps and
-the serving engine; the stub frontends; the SSM and hybrid families still
-raise.  Tolerances (float32): logits and caches 1e-4, as for the dense
-family; served tokens equal.
+the serving engine; the stub frontends; the SSM and hybrid families build.
+Tolerances (float32): logits and caches 1e-4, as for the dense family;
+served tokens equal.
 """
 import jax
 import jax.numpy as jnp
@@ -176,11 +176,17 @@ def test_stub_frontends_shapes_seeds_and_device_rule():
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
 def test_ssm_and_hybrid_still_raise(name):
+    """The SSM and hybrid families no longer raise: their parameters and
+    caches build on the CPU (held against the reference in
+    ``test_torch_mamba2.py`` and ``test_torch_hybrid.py``)."""
     cfg = treduced(tget(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_lm(cfg, torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_caches(cfg, 1, 8, device="cpu")
+    params = TT.init_lm(cfg, torch.Generator(), device="cpu")
+    caches = TT.init_caches(cfg, 1, 8, device="cpu")
+    assert all("ssm" in st for st in params["stages"])
+    assert all(tuple(c["ssm"]["ssm"].shape)
+               == (st["ssm"]["A_log"].shape[0], 1, cfg.ssm_heads,
+                   cfg.ssm_head_dim, cfg.ssm_state)
+               for c, st in zip(caches, params["stages"]))
 
 
 @pytest.mark.parametrize("name", ARCHS + ["moonshot-v1-16b-a3b"])

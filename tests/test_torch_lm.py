@@ -309,16 +309,30 @@ def test_params_from_jax_keeps_bfloat16():
 
 @pytest.mark.parametrize("name", ["mamba2-2.7b", "hymba-1.5b"])
 def test_other_families_wait(name):
+    """The SSM and hybrid families, refused until their slice was ported,
+    now initialise and prefill on the CPU (``test_torch_mamba2.py`` and
+    ``test_torch_hybrid.py`` hold them against the reference)."""
     cfg = treduced(tget(name))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_lm(cfg, torch.Generator(), device="cpu")
+    params = TT.init_lm(cfg, torch.Generator().manual_seed(0), device="cpu")
+    logits, caches = TT.prefill(cfg, params,
+                                torch.zeros((1, 4), dtype=torch.int32),
+                                max_len=8)
+    assert logits.shape == (1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    assert all("ssm" in c for c in caches)
 
 
 def test_int8_kv_cache_waits(model):
+    """The int8 KV cache, refused until its slice was ported, now prefills
+    on the CPU into int8 payloads with float32 scales
+    (``test_torch_kv8.py`` holds it against the reference)."""
     _, tc, _, tparams = model
     cfg = dataclasses.replace(tc, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.prefill(cfg, tparams, torch.zeros((1, 4), dtype=torch.int32))
+    logits, caches = TT.prefill(cfg, tparams,
+                                torch.zeros((1, 4), dtype=torch.int32))
+    assert bool(torch.isfinite(logits).all())
+    attn = caches[0]["attn"]
+    assert attn["k"].dtype == torch.int8 and attn["ks"].dtype == torch.float32
 
 
 # ---------------------------------------------------------------------------
