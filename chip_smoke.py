@@ -119,7 +119,32 @@ results go to lines before the last; each phase prints its wall):
    bf16 product per site class; layer 0's 7 linears at 4 bits through
    ``bitserial_linear`` (the bit-serial kernel with signed planes, 7
    launches), each kernel result bit-equal to the plain version's;
-10. times on the card: each kernel and one PyTorch call at its shapes
+10. training, one model on the card at a time (no kernel runs here: the
+    reference trains through no Pallas kernel, and under grad the port's
+    attention takes the scan, as the reference differentiates it):
+    ``train-grad``, float32 olmo-1b at full width with 2 of its 16
+    layers, ``lm_loss`` and its gradients at batch 2 x 256 on the card and
+    on the CPU from the same parameters, each leaf within 1e-4 of its max
+    |g|, every attention leaf's gradient non-zero, 0 flash_attention
+    launches; ``train``, full-width olmo-1b (16 layers, bf16, 1.18 B
+    parameters, tied embeddings) at batch 4 x 1024 with
+    ``default_microbatches`` (2): every leaf moved by one step, then
+    ``train()`` for 4 steps with a checkpoint every 2, its step-4
+    checkpoint restored bit-equal to the returned state, ``train()``
+    resumed to 6 (steps 4 and 5, the iterator at 4) and the same 6 steps
+    run straight through in a fresh directory, the resumed losses within
+    rtol 1e-4 of the straight run's; prints the step wall, tokens/s, peak
+    memory and the share of the bf16 dense peak (6 N tokens / (wall x 989
+    TFLOP/s)); ``train-compress``, two rounds of ``error_feedback_update``
+    on one microbatch's full-width gradients, the new error feedback g +
+    ef - recon within float32 rounding, and the bytes sent;
+    ``train-q8``, 3 steps with int8 moments (at most 2.1 bytes a
+    parameter) and ``_q8_pack`` on the card bit-equal to the CPU's;
+    ``train-overfit``, 16 steps of ``AdamW(lr=1e-3)`` on one batch, the
+    loss falling by at least 1 nat; ``train-hybrid``, full-width
+    hymba-1.5b (32 layers) at batch 2 x 1024, gradients finite and every
+    attention and mixer leaf's non-zero, then 2 steps, losses finite;
+11. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
     ``torch._int_mm`` plus the epilogue for quant_matmul,
     ``scaled_dot_product_attention`` on KV repeated to H heads for
@@ -132,7 +157,7 @@ results go to lines before the last; each phase prints its wall):
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
-11. one JSON line listing the four kernels (launches summed over every
+12. one JSON line listing the four kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs
     for ``bitserial_matmul``, the seven served LMs and the two int8-cache
     runs for ``flash_attention``), then the card line, then
@@ -187,10 +212,13 @@ def card_line() -> str:
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtypes, shapes and bits (floats compared as integers)."""
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.is_floating_point():
+        ity = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            a.element_size()]
+        return torch.equal(a.view(ity), b.view(ity))
     return torch.equal(a, b)
 
 
@@ -2293,6 +2321,452 @@ def phase_lm_ptq(transformer, layers, ptq, ops, qm, bsm, cfg, params,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# training (phase 10): lm_loss through autograd, AdamW, the loop
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "olmo-1b"
+TRAIN_SHAPE = (1024, 4)  # (seq_len, global batch) of the train phase
+TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_CKPT_EVERY = 4, 6, 2
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_BATCH = 2, (2, 256)  # float32, card vs CPU
+TRAIN_GRAD_TOL = 1e-4  # each leaf's max |card - CPU| / its max |g|
+TRAIN_RESUME_RTOL = 1e-4  # the reference's own resume tolerance
+TRAIN_OVERFIT_STEPS, TRAIN_OVERFIT_LR, TRAIN_OVERFIT_DROP = 16, 1e-3, 1.0
+TRAIN_Q8_STEPS, TRAIN_Q8_BYTES = 3, 2.1  # moment bytes a parameter, at most
+HYBRID_ARCH, HYBRID_SHAPE, HYBRID_STEPS = "hymba-1.5b", (1024, 2), 2
+BF16_PEAK = 989e12  # one H100's dense bf16 rate (SXM data sheet, 700 W)
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+
+
+def _train_batch(cfg, seq_len: int, batch: int, index: int, dev):
+    from repro_torch.data import SyntheticLMDataset
+    return SyntheticLMDataset(cfg.vocab_size, seq_len, batch).global_arrays(
+        index, device=dev)
+
+
+def _fresh_card(dev):
+    """Free what the last phase left and start the peak memory count (the
+    synchronize also initializes CUDA before its memory calls)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _profile_step(step, args, dev, tag) -> None:
+    """One more train step under ``torch.profiler``: its wall, the device's
+    busy time (the kernels' time, each counted once under the op that
+    launched it) and idle share, the shares of the weight products
+    (``aten::mm``), the batched products (``aten::bmm``: the attention
+    scan's, the SSD's) and the optimizer (the step's ``adamw`` span), and
+    the ops with the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    if torch.device(dev).type != "cuda":  # no device time to read
+        t0 = time.perf_counter()
+        step(*args)
+        log(f"[{tag}] profiled step: wall {time.perf_counter() - t0:.4f} "
+            f"s; device time not measured (no card)")
+        return
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = sorted(((e.self_device_time_total / 1e3, e.key)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CPU), reverse=True)
+    busy = sum(ms for ms, _ in ops)
+    by_name = {name: ms for ms, name in ops}
+    adamw = sum(e.device_time_total for e in prof.events()
+                if e.name == "adamw" and e.device_type == DeviceType.CPU)
+    share = {"mm": by_name.get("aten::mm", 0.0) / busy,
+             "bmm": by_name.get("aten::bmm", 0.0) / busy,
+             "adamw": adamw / 1e3 / busy}
+    log(f"[{tag}] profiled step: wall {wall:.4f} s, device busy "
+        f"{busy / 1e3:.4f} s, idle share {1 - busy / 1e3 / wall:.3f}; of "
+        f"the busy time aten::mm {share['mm']:.3f}, aten::bmm "
+        f"{share['bmm']:.3f}, the adamw span {share['adamw']:.3f}; top ops "
+        f"(device ms) {[(name, round(ms, 2)) for ms, name in ops[:8]]}")
+
+
+def phase_train_grad(cfg, dev) -> float:
+    """``lm_loss`` and its gradients of ``cfg`` (float32) on the card and,
+    from the same parameters copied over, on the CPU: each leaf within
+    TRAIN_GRAD_TOL of that leaf's max |g|, every attention leaf's
+    gradient non-zero and no flash_attention launch under grad (the
+    forward takes the scan).  Returns the worst ratio."""
+    from repro_torch import tree
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    _fresh_card(dev)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    cpu_params = tree.map(lambda p: p.cpu(), params)
+    batch = _train_batch(cfg, TRAIN_GRAD_BATCH[1], TRAIN_GRAD_BATCH[0], 0,
+                         "cpu")
+    before = fa.flash_attention.launches
+    t0 = time.perf_counter()
+    loss, grads = steps.value_and_grad(
+        cfg, params, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches = fa.flash_attention.launches - before
+    t0 = time.perf_counter()
+    want_loss, want = steps.value_and_grad(cfg, cpu_params, batch)
+    t_cpu = time.perf_counter() - t0
+    worst, names = 0.0, tree.paths(params)
+    for name, g, w in zip(names, tree.leaves(grads), tree.leaves(want)):
+        g = g.cpu()
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not bool(torch.isfinite(g).all()) or err > TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"train-grad {name}: card vs CPU max |d| "
+                                 f"{err:.3e} against {TRAIN_GRAD_TOL} x "
+                                 f"{scale:.3e}")
+        if name.split("/")[-1] in ATTN_LEAVES and not bool((g != 0).any()):
+            raise AssertionError(f"train-grad {name}: the attention leaf "
+                                 f"has no gradient")
+        worst = max(worst, err / scale if scale else 0.0)
+    if launches:
+        raise AssertionError(f"train-grad: {launches} flash_attention "
+                             f"launches under grad, want 0")
+    if abs(float(loss) - float(want_loss)) > 1e-5 * abs(float(want_loss)):
+        raise AssertionError(f"train-grad: loss {float(loss)} on the card, "
+                             f"{float(want_loss)} on the CPU")
+    log(f"[train-grad] {cfg.name} float32, {cfg.n_layers} layers at full "
+        f"width ({cfg.param_count() / 1e6:.0f} M parameters), batch "
+        f"{TRAIN_GRAD_BATCH[0]} x {TRAIN_GRAD_BATCH[1]}: loss "
+        f"{float(loss):.6f} (CPU {float(want_loss):.6f}); {len(names)} "
+        f"gradient leaves, worst max |card - CPU| / max |g| {worst:.2e} "
+        f"(limit {TRAIN_GRAD_TOL}), every attention leaf non-zero, "
+        f"{launches} flash_attention launches under grad; card "
+        f"{t_card:.2f} s, CPU {t_cpu:.2f} s")
+    return worst
+
+
+def phase_train(cfg, seq_len, batch, workdir, dev) -> dict:
+    """The training loop at full width: ``train()`` for TRAIN_STEPS steps
+    with a checkpoint every TRAIN_CKPT_EVERY, the last checkpoint restored
+    bit-equal to the returned state, ``train()`` resumed to
+    TRAIN_RESUMED_STEPS from it (the iterator at TRAIN_STEPS), and the same
+    steps run straight through in a fresh directory: losses and grad norms
+    finite, every leaf changed by the first step, resumed losses within
+    TRAIN_RESUME_RTOL of the straight run's, no flash_attention launch.
+    Returns the straight run's numbers."""
+    import shutil
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    shape = ShapeSpec("card", seq_len, batch, "train")
+    n_mb = steps.default_microbatches(cfg, shape)
+    workdir = pathlib.Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    log(f"[train] {cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters "
+        f"({cfg.dtype}, tied embeddings {cfg.tie_embeddings}), batch {batch} "
+        f"x {seq_len} tokens, default_microbatches {n_mb}, moments "
+        f"{'int8' if steps.make_optimizer(cfg).quantize_moments else 'f32'};"
+        f" free disk {shutil.disk_usage(workdir.parent).free / 1e9:.0f} GB")
+    before = fa.flash_attention.launches
+
+    # the first step moves every leaf (train()'s step 0, run alone)
+    _fresh_card(dev)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    opt = steps.make_optimizer(cfg, total=TRAIN_STEPS)
+    new, _, _ = steps.make_train_step(cfg, opt, n_mb)(
+        params, opt.init(params), _train_batch(cfg, seq_len, batch, 0, dev))
+    still = [name for name, a, b in zip(tree.paths(params),
+                                        tree.leaves(params),
+                                        tree.leaves(new))
+             if torch.equal(a, b)]
+    if still:
+        raise AssertionError(f"train: leaves unchanged by step 1: {still}")
+    del params, new, opt
+
+    def run(n_steps, ckpt_dir, every):
+        _fresh_card(dev)
+        t0 = time.perf_counter()
+        out = train_mod.train(cfg, shape, steps=n_steps,
+                              ckpt_dir=str(ckpt_dir), ckpt_every=every,
+                              log_every=1, device=dev)
+        torch.cuda.synchronize()
+        hist = out[2]
+        for h in hist:
+            if not (math.isfinite(h["loss"]) and math.isfinite(
+                    h["grad_norm"])):
+                raise AssertionError(f"train: step {h['step']} loss "
+                                     f"{h['loss']}, grad norm "
+                                     f"{h['grad_norm']}")
+        return out, time.perf_counter() - t0
+
+    (p4, o4, h4), wall4 = run(TRAIN_STEPS, workdir / "a", TRAIN_CKPT_EVERY)
+    step, trees, extras = restore_checkpoint(
+        workdir / "a", {"params": p4, "opt_state": o4}, device=dev)
+    bad = [name for name, a, b in zip(
+        tree.paths(trees), tree.leaves(trees),
+        tree.leaves({"opt_state": o4, "params": p4}))
+        if not bits_equal(a, b)]
+    if step != TRAIN_STEPS or extras["data"] != {"next_index": TRAIN_STEPS}:
+        raise AssertionError(f"train: checkpoint step {step}, extras "
+                             f"{extras}")
+    if bad:
+        raise AssertionError(f"train: restored leaves differ from the saved "
+                             f"state: {bad[:5]} ({len(bad)})")
+    n_leaves = len(tree.leaves(trees))
+    del p4, o4, trees
+    (_, _, h6r), _ = run(TRAIN_RESUMED_STEPS, workdir / "a",
+                         TRAIN_CKPT_EVERY)
+    resumed = [h["step"] for h in h6r]
+    if resumed != list(range(TRAIN_STEPS, TRAIN_RESUMED_STEPS)):
+        raise AssertionError(f"train: the resumed run ran steps {resumed}")
+    shutil.rmtree(workdir / "a")
+    (p6, o6, h6), wall6 = run(TRAIN_RESUMED_STEPS, workdir / "b",
+                              TRAIN_RESUMED_STEPS)
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(workdir)
+    _profile_step(
+        steps.make_train_step(cfg, steps.make_optimizer(
+            cfg, total=TRAIN_RESUMED_STEPS), n_mb),
+        (p6, o6, _train_batch(cfg, seq_len, batch, TRAIN_RESUMED_STEPS,
+                              dev)), dev, "train")
+    del p6, o6
+    straight = [h["loss"] for h in h6[TRAIN_STEPS:]]
+    got = [h["loss"] for h in h6r]
+    for a, b in zip(got, straight):
+        if abs(a - b) > TRAIN_RESUME_RTOL * abs(b):
+            raise AssertionError(f"train: resumed losses {got}, straight "
+                                 f"{straight}")
+    launches = fa.flash_attention.launches - before
+    if launches:
+        raise AssertionError(f"train: {launches} flash_attention launches")
+    tokens = batch * seq_len
+    wall = float(np.median([h["time_s"] for h in h6[1:]]))
+    share = 6 * cfg.param_count() * tokens / (wall * BF16_PEAK)
+    out = {"n_mb": n_mb, "step_s": wall, "tok_s": tokens / wall,
+           "share": share, "peak": peak}
+    log(f"[train] checkpoint of step {TRAIN_STEPS}: {n_leaves} leaves "
+        f"restored bit-equal to the saved state, iterator at "
+        f"{extras['data']['next_index']}; resumed steps {resumed} losses "
+        f"{[round(x, 6) for x in got]} vs straight "
+        f"{[round(x, 6) for x in straight]} (rtol {TRAIN_RESUME_RTOL}); "
+        f"{launches} flash_attention launches")
+    log(f"[train] straight run of {TRAIN_RESUMED_STEPS} steps: losses "
+        f"{[round(h['loss'], 4) for h in h6]}, grad norms "
+        f"{[round(h['grad_norm'], 4) for h in h6]}, step walls "
+        f"{[round(h['time_s'], 4) for h in h6]} s; run walls (init, "
+        f"checkpoints included) {wall4:.1f} s for {TRAIN_STEPS} steps, "
+        f"{wall6:.1f} s for {TRAIN_RESUMED_STEPS}")
+    log(f"[train] step wall {wall:.4f} s (median of steps 1-"
+        f"{TRAIN_RESUMED_STEPS - 1}; step 0 {h6[0]['time_s']:.2f} s), "
+        f"{tokens / wall:.0f} tokens/s, share of the bf16 dense peak "
+        f"(6 N tokens / (wall x 989 TFLOP/s)) {share:.4f}, peak "
+        f"{peak / 2 ** 30:.2f} GiB, {n_mb} microbatches")
+    return out
+
+
+def phase_train_compress(cfg, params, batch, dev):
+    """One step's gradients through two rounds of
+    ``error_feedback_update``: each new error feedback equal to g + ef -
+    the reconstruction within float32 rounding, the effective gradient the
+    reconstruction in the gradient's dtype.  Returns the float32
+    gradient of the first leaf (the embedding) for ``phase_train_q8``."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import compression
+    _, grads = steps.value_and_grad(cfg, params, batch)
+    ef = compression.ef_init(grads)
+    worst = 0.0
+    for _ in range(2):  # the second round carries the first's residual
+        comp, new_ef = compression.compress_gradients(grads, ef)
+        eff, again = compression.error_feedback_update(grads, ef)
+        for g, e, c, ne, ne2, ge in zip(
+                tree.leaves(grads), tree.leaves(ef),
+                tree.leaves(comp, is_leaf=compression._is_compressed),
+                tree.leaves(new_ef), tree.leaves(again), tree.leaves(eff)):
+            recon = (c.q.float() * c.scale).reshape(-1)[:g.numel()]
+            want = (g.float() + e).reshape(-1) - recon
+            err = float((ne.reshape(-1) - want).abs().max())
+            tol = 2 * float(torch.finfo(torch.float32).eps) * max(
+                float((g.float() + e).abs().max()), 1e-30)
+            worst = max(worst, err / tol)
+            if (err > tol or not torch.equal(ne, ne2)
+                    or not torch.equal(ge, recon.reshape(g.shape).to(
+                        g.dtype))):
+                raise AssertionError(f"compression: new ef off by {err:.3e}"
+                                     f" (limit {tol:.3e})")
+        ef = new_ef
+    n = sum(g.numel() for g in tree.leaves(grads))
+    sent = sum(c.q.numel() + 4 * c.scale.numel() for c in tree.leaves(
+        comp, is_leaf=compression._is_compressed))
+    log(f"[train-compress] error feedback over {n / 1e9:.3f} B gradient "
+        f"values, two rounds: new ef = g + ef - recon within float32 "
+        f"rounding (worst {worst:.2f} of the limit); {sent / 1e9:.3f} GB "
+        f"sent against {4 * n / 1e9:.3f} GB of float32 ({4 * n / sent:.2f}"
+        f"x fewer; {2 * n / 1e9:.3f} GB as bf16)")
+    return tree.leaves(grads)[0].float()
+
+
+def phase_train_q8(cfg, params, batch, n_mb, probe, dev) -> dict:
+    """TRAIN_Q8_STEPS steps with int8 moments: losses finite, at most
+    TRAIN_Q8_BYTES moment bytes a parameter (float32 moments take 8), and
+    ``_q8_pack`` of ``probe`` on the card bit-equal to it on the CPU."""
+    from repro_torch import tree
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW, _q8_pack
+    opt = AdamW(quantize_moments=True)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, n_mb)
+    losses = []
+    for _ in range(TRAIN_Q8_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train-q8: losses {losses}")
+    n = sum(p.numel() for p in tree.leaves(params))
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in tree.leaves((state["m"], state["v"])))
+    if nbytes / n > TRAIN_Q8_BYTES:
+        raise AssertionError(f"train-q8: {nbytes / n:.3f} moment bytes a "
+                             f"parameter, limit {TRAIN_Q8_BYTES}")
+    got, want = _q8_pack(probe), _q8_pack(probe.cpu())
+    if not (torch.equal(got.q.cpu(), want.q)
+            and bits_equal(got.scale.cpu(), want.scale)):
+        raise AssertionError("train-q8: _q8_pack on the card differs from "
+                             "the CPU's")
+    log(f"[train-q8] {TRAIN_Q8_STEPS} steps with int8 moments: losses "
+        f"{[round(x, 4) for x in losses]}; moments {nbytes / 1e9:.3f} GB, "
+        f"{nbytes / n:.4f} bytes a parameter (float32 moments: 8, "
+        f"{8 * n / 1e9:.3f} GB); _q8_pack of a {tuple(probe.shape)} "
+        f"gradient bit-equal on the card and the CPU")
+    return {"q8_bytes": nbytes, "f32_bytes": 8 * n}
+
+
+def phase_train_overfit(cfg, params, batch, n_mb, dev) -> list:
+    """TRAIN_OVERFIT_STEPS steps of AdamW(lr=TRAIN_OVERFIT_LR) on one
+    batch: the loss falls by at least TRAIN_OVERFIT_DROP nats."""
+    from repro_torch.launch import steps
+    from repro_torch.optim.adamw import AdamW
+    opt = AdamW(lr=TRAIN_OVERFIT_LR)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, n_mb)
+    losses = []
+    for _ in range(TRAIN_OVERFIT_STEPS):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    drop = losses[0] - losses[-1]
+    log(f"[train-overfit] {TRAIN_OVERFIT_STEPS} steps of AdamW(lr="
+        f"{TRAIN_OVERFIT_LR}) on one batch: loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (ln V = {math.log(cfg.vocab_size):.4f}), a fall "
+        f"of {drop:.4f} nats (at least {TRAIN_OVERFIT_DROP}); losses "
+        f"{[round(x, 3) for x in losses]}")
+    if not (math.isfinite(drop) and drop >= TRAIN_OVERFIT_DROP):
+        raise AssertionError(f"train-overfit: the loss fell {drop} nats")
+    return losses
+
+
+def phase_train_family(cfg, seq_len, batch, dev) -> dict:
+    """Full-width loss and gradients of another family (hymba-1.5b: the
+    banded scan, the SSD mixer's backward, the grad routing of its global
+    layers) on the first microbatch, then HYBRID_STEPS train steps: losses
+    finite, every gradient leaf finite, every attention and mixer leaf's
+    gradient non-zero, no flash_attention launch."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    _fresh_card(dev)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_mb = steps.default_microbatches(
+        cfg, ShapeSpec("card", seq_len, batch, "train"))
+    data = _train_batch(cfg, seq_len, batch, 0, dev)
+    before = fa.flash_attention.launches
+    loss, grads = steps.value_and_grad(
+        cfg, params, {k: v[:batch // n_mb] for k, v in data.items()})
+    for name, g in zip(tree.paths(grads), tree.leaves(grads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"train-hybrid {name}: non-finite grad")
+        kind = name.split("/")
+        if ("attn" in kind or "ssm" in kind) and not bool((g != 0).any()):
+            raise AssertionError(f"train-hybrid {name}: zero gradient")
+    del grads
+    opt = steps.make_optimizer(cfg)
+    state = opt.init(params)
+    step = steps.make_train_step(cfg, opt, n_mb)
+    losses, walls = [float(loss)], []
+    for i in range(HYBRID_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state,
+                                _train_batch(cfg, seq_len, batch, i, dev))
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    _profile_step(step, (params, state, _train_batch(
+        cfg, seq_len, batch, HYBRID_STEPS, dev)), dev, "train-hybrid")
+    launches = fa.flash_attention.launches - before
+    if not all(math.isfinite(x) for x in losses) or launches:
+        raise AssertionError(f"train-hybrid: losses {losses}, {launches} "
+                             f"flash_attention launches")
+    tokens = batch * seq_len
+    log(f"[train-hybrid] {cfg.name}: {cfg.n_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({cfg.dtype}), batch "
+        f"{batch} x {seq_len}, {n_mb} microbatches: every gradient leaf "
+        f"finite, every attention and mixer leaf non-zero; losses (the "
+        f"first microbatch's, then the steps') "
+        f"{[round(x, 4) for x in losses]}; step walls "
+        f"{[round(w, 3) for w in walls]} s, {tokens / walls[-1]:.0f} "
+        f"tokens/s, share of the bf16 dense peak "
+        f"{6 * cfg.param_count() * tokens / (walls[-1] * BF16_PEAK):.4f}, "
+        f"peak {peak / 2 ** 30:.2f} GiB, {launches} flash_attention "
+        f"launches")
+    return {"n_mb": n_mb, "step_s": walls[-1], "peak": peak}
+
+
+def phase_training(timed, get_config, transformer, workdir, dev) -> None:
+    """Phase 10: the training phases in order, one model on the card at a
+    time, each through ``timed``; checkpoints go under ``workdir``."""
+    olmo = get_config(TRAIN_ARCH)
+    timed("train-grad", phase_train_grad, dataclasses.replace(
+        olmo, n_layers=TRAIN_GRAD_LAYERS, dtype="float32"), dev)
+    seq_len, batch = TRAIN_SHAPE
+    trained = timed("train", phase_train, olmo, seq_len, batch, workdir,
+                    dev)
+    _fresh_card(dev)
+    train_params = transformer.init_lm(
+        olmo, torch.Generator(device=dev).manual_seed(1), device=dev)
+    train_batch = _train_batch(olmo, seq_len, batch, 0, dev)
+    n_mb = trained["n_mb"]
+    probe = timed("train-compress", phase_train_compress, olmo, train_params,
+                  {k: v[:batch // n_mb] for k, v in train_batch.items()},
+                  dev)
+    moments = timed("train-q8", phase_train_q8, olmo, train_params,
+                    train_batch, n_mb, probe, dev)
+    timed("train-overfit", phase_train_overfit, olmo, train_params,
+          train_batch, n_mb, dev)
+    del train_params, train_batch, probe
+    hybrid = timed("train-hybrid", phase_train_family,
+                   get_config(HYBRID_ARCH), *HYBRID_SHAPE, dev)
+    log(f"[train] summary: {TRAIN_ARCH} step {trained['step_s']:.4f} s, "
+        f"{trained['tok_s']:.0f} tokens/s, {trained['share']:.4f} of the "
+        f"bf16 dense peak, peak {trained['peak'] / 2 ** 30:.2f} GiB, "
+        f"{trained['n_mb']} microbatches, moments f32 "
+        f"{moments['f32_bytes'] / 1e9:.3f} GB vs int8 "
+        f"{moments['q8_bytes'] / 1e9:.3f} GB; {HYBRID_ARCH} step "
+        f"{hybrid['step_s']:.4f} s, peak {hybrid['peak'] / 2 ** 30:.2f} GiB, "
+        f"{hybrid['n_mb']} microbatches; 0 flash_attention launches on the "
+        f"training path")
+
+
 def phase_registers(cuda_build):
     """Each kernel's registers a thread and spill bytes over its entry
     functions (template instantiations), from the build's ``-Xptxas -v``
@@ -2438,6 +2912,8 @@ def main() -> int:
     log(f"[lm-families] flash_attention launches by served model: "
         f"{fa_by_path}")
     launches_fa = sum(fa_by_path.values())
+    phase_training(timed, get_config, transformer,
+                   ROOT / "build" / "train-ckpt", dev)
     rows = timed("times", phase_times, bsm, dev)
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)

@@ -105,7 +105,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Tiled attention (see the module docstring).  CUDA tensors launch the
-    Hopper kernel; CPU tensors run :func:`flash_attention_plain`."""
+    Hopper kernel; CPU tensors run :func:`flash_attention_plain`.  The
+    kernel has no backward, so under grad mode an operand that requires
+    grad raises ``RuntimeError`` on every device (its output would carry
+    no gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward: call it under torch.no_grad() "
+            "or on operands that do not require grad")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal)
     B, H, Hkv, Tq, Tk, D = _check(q, k, v)

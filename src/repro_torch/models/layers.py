@@ -6,7 +6,8 @@ Parameters are plain dicts of tensors, as the reference's pytrees.
 (sliding-window) prefill on any device; on a CUDA device the full prefill
 (``window == 0``, ``q_offset == 0``, no ``kv_valid``) runs the hand-written
 flash-attention kernel through :func:`repro_torch.kernels.ops.flash_attention`,
-and ``q_offset`` or ``kv_valid`` raise.  KV caches are dicts ``{"k", "v"}``
+and ``q_offset`` or ``kv_valid`` raise; a forward that needs the gradient
+takes the scan on every device.  KV caches are dicts ``{"k", "v"}``
 of ``[B, Hkv, W, D]`` in ``cfg.dtype`` or, for ``cfg.kv_dtype == "int8"``,
 int8 payloads with float32 per-(position, head) scales ``{"ks", "vs"}`` of
 ``[B, Hkv, W, 1]``; a sliding-window layer's cache is a ring of
@@ -185,9 +186,17 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     the operands' device; ``window > 0`` takes the banded path (a fixed
     ``window + q_chunk`` KV strip per Q tile), which the reference also
     computes outside its Pallas kernel.
+
+    Under grad mode with an operand that requires grad (a training
+    forward) the scan runs on every device: the kernel has no backward,
+    as the reference's Pallas kernel has none, and the reference's train
+    step differentiates this same scan.  The kernel wrapper refuses such
+    operands, so no path can detach attention from its gradient.
     """
     dev = q.device
-    if dev.type != "cpu":
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    if dev.type != "cpu" and not needs_grad:
         if not _is_zero(q_offset) or kv_valid is not None:
             raise NotImplementedError(
                 "on a GPU, flash_attention runs the prefill from position 0 "

@@ -17,6 +17,7 @@ Entry points:
     init_lm(cfg, generator, device=...)          -> params
     params_from_jax(params_np, device=...)       -> params
     lm_apply(cfg, params, tokens, ...)           -> (hidden, caches or None)
+    lm_loss(cfg, params, tokens, labels, ...)    -> scalar loss
     prefill(cfg, params, tokens, max_len=...)    -> (last_logits, caches)
     decode_step(cfg, params, tokens, caches, pos) -> (logits, caches)
 
@@ -27,10 +28,14 @@ the stacked leaves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -39,7 +44,8 @@ from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 
 __all__ = ["plan_stages", "init_lm", "params_from_jax", "lm_apply",
-           "lm_logits", "prefill", "decode_step", "init_caches", "Stage"]
+           "lm_logits", "lm_loss", "prefill", "decode_step", "init_caches",
+           "Stage"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -256,14 +262,57 @@ def _layer_apply(cfg, lp, x, positions, window, cache, cache_pos):
     return x
 
 
+def _unbind(tree: dict, n: int) -> list[dict]:
+    """The ``n`` per-layer views of a stacked tree, one ``unbind`` per
+    leaf: its backward stacks the layers' gradients once, where a
+    ``select`` per layer would build a zero tensor the size of the whole
+    ``[L, ...]`` leaf for each layer."""
+    out: list[dict] = [{} for _ in range(n)]
+    for k, v in tree.items():
+        parts = _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+        for o, part in zip(out, parts):
+            o[k] = part
+    return out
+
+
+def _remat_wrap(cfg, fn):
+    """``cfg.remat``: ``"full"`` recomputes the whole layer in the
+    backward; ``"dots"`` saves the weight products' outputs (``aten.mm``)
+    and recomputes the rest, so the attention scores and probabilities
+    (batched products) are not kept, as the reference's
+    ``dots_with_no_batch_dims_saveable``.  Values are the same under every
+    policy; only the memory held for the backward differs."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        def policy(ctx, op, *args, **kwargs):
+            return (CheckpointPolicy.MUST_SAVE
+                    if op is torch.ops.aten.mm.default
+                    else CheckpointPolicy.PREFER_RECOMPUTE)
+
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r}")
+
+
 def _stage_apply(cfg, stacked, x, positions, st: Stage, cache, cache_pos):
     """Run the ``st.length`` stacked layers of one stage in order (the
-    reference's scan); the stage's cache, if any, is written in place."""
-    for i in range(st.length):
-        lc = _index(cache, i) if cache is not None else None
-        x = _layer_apply(cfg, _index(stacked, i), x, positions, st.window,
-                         lc, cache_pos)
-    return x, cache
+    reference's scan); the stage's cache, if any, is written in place.
+    Without a cache (a training forward) each layer runs under
+    :func:`_remat_wrap`."""
+    if cache is not None:
+        for i in range(st.length):
+            x = _layer_apply(cfg, _index(stacked, i), x, positions,
+                             st.window, _index(cache, i), cache_pos)
+        return x, cache
+    layer = _remat_wrap(cfg, _layer_apply)
+    for lp in _unbind(stacked, st.length):
+        x = layer(cfg, lp, x, positions, st.window, None, cache_pos)
+    return x, None
 
 
 def _embed(cfg, params, tokens=None, embeds=None):
@@ -294,6 +343,42 @@ def lm_apply(cfg, params, tokens=None, *, embeds=None, positions=None,
 
 def lm_logits(cfg, params, hidden):
     return _head(cfg, params, hidden)
+
+
+def _chunk_loss(cfg, params, h, lab):
+    """Summed cross-entropy of one ``[B, C]`` chunk and its count of
+    labels >= 0 (label -1 is padding)."""
+    logits = _head(cfg, params, h).to(getattr(torch, cfg.loss_dtype))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(
+        logits, torch.clamp_min(lab, 0)[..., None].to(torch.int64),
+        dim=-1)[..., 0]
+    valid = lab >= 0
+    ce = torch.where(valid, logz - gold, 0.0)
+    return ce.sum(dtype=torch.float32), valid.sum(dtype=torch.int32)
+
+
+def lm_loss(cfg, params, tokens, labels, *, embeds=None,
+            loss_chunk: int = 512):
+    """Next-token cross-entropy over labels >= 0, chunked over the sequence
+    so [B, S, V] never materializes: each ``loss_chunk`` of positions runs
+    under a checkpoint that recomputes its logits in the backward instead
+    of keeping them.  The float32 sum over the chunks is divided by the
+    count of labels (at least 1)."""
+    hidden, _ = lm_apply(cfg, params, tokens, embeds=embeds)
+    B, T, D = hidden.shape
+    C = min(loss_chunk, T)
+    pad = (-T) % C
+    if pad:
+        hidden = F.pad(hidden, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(0, hidden.shape[1], C):
+        ce, n = checkpoint(_chunk_loss, cfg, params, hidden[:, i:i + C],
+                           labels[:, i:i + C], use_reentrant=False)
+        tot, cnt = tot + ce, cnt + n
+    return tot / torch.clamp_min(cnt, 1)
 
 
 def prefill(cfg, params, tokens=None, *, embeds=None,
