@@ -144,7 +144,32 @@ results go to lines before the last; each phase prints its wall):
     loss falling by at least 1 nat; ``train-hybrid``, full-width
     hymba-1.5b (32 layers) at batch 2 x 1024, gradients finite and every
     attention and mixer leaf's non-zero, then 2 steps, losses finite;
-11. times on the card: each kernel and one PyTorch call at its shapes
+11. the distributed layer (``phase_distributed``, at most 180 s): on a
+    1 x 1 ``DeviceMesh`` of a one-rank NCCL world, ``dist-train``, full-width
+    bf16 olmo-1b at batch 4 x 1024 through ``build_sharded_step`` (DTensor
+    parameters, optimizer state and batch; ``remat_none``, phase 10's
+    policy), its gradients held against the unsharded ``value_and_grad``'s
+    (each leaf within 1e-4 of its max |g|), 6 steps in turns with the
+    unsharded ``make_train_step``'s (losses within rtol 1e-4, parameters
+    within 1e-4 of each leaf's update), bit-equality printed, the step
+    analysed (``analyze_step``) and priced on ``H100_SXM`` beside its
+    median device wall (steps 2-6), its ``model_flops / (wall x peak)``
+    held against the twin's; then ``train(mesh=)`` runs phase 10's
+    straight run on the mesh (losses within rtol 1e-4 of phase 10's) and
+    its share of the peak is held against phase 10's (two shares at most
+    the sum of their spreads apart, each spread from its own walls alone);
+    then the dry run of olmo-1b x
+    train_4k and moonshot-v1-16b-a3b x decode_32k on a (16, 16) mesh of a
+    fake 256-rank world starts (``python -m repro_torch.launch.dryrun``,
+    one subprocess a cell on the host, waited for last; each must exit 0
+    with ``"ok": true``; peak bytes a device, FLOPs, bytes, collectives by
+    kind, the dominant roofline term and the sharding fallbacks printed)
+    while ``dist-serve`` runs full-width qwen2-7b's 4 prompts through the
+    sharded prefill (bit-equal to ``prefill``; its attention through
+    ``local_map`` into the flash kernel, 28 launches a prompt, added to
+    the kernels line) and 16 sharded decode steps a prompt (within 0.125
+    of ``decode_step``), the longest prefill analysed and priced;
+12. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
     ``torch._int_mm`` plus the epilogue for quant_matmul,
     ``scaled_dot_product_attention`` on KV repeated to H heads for
@@ -157,10 +182,11 @@ results go to lines before the last; each phase prints its wall):
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
-12. one JSON line listing the four kernels (launches summed over every
+13. one JSON line listing the four kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs
-    for ``bitserial_matmul``, the seven served LMs and the two int8-cache
-    runs for ``flash_attention``), then the card line, then
+    for ``bitserial_matmul``, the seven served LMs, the two int8-cache
+    runs and the sharded prefills for ``flash_attention``), then the card
+    line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -2551,7 +2577,9 @@ def phase_train(cfg, seq_len, batch, workdir, dev) -> dict:
     wall = float(np.median([h["time_s"] for h in h6[1:]]))
     share = 6 * cfg.param_count() * tokens / (wall * BF16_PEAK)
     out = {"n_mb": n_mb, "step_s": wall, "tok_s": tokens / wall,
-           "share": share, "peak": peak}
+           "share": share, "peak": peak,
+           "step_walls": [h["time_s"] for h in h6[1:]],
+           "losses": [h["loss"] for h in h6]}
     log(f"[train] checkpoint of step {TRAIN_STEPS}: {n_leaves} leaves "
         f"restored bit-equal to the saved state, iterator at "
         f"{extras['data']['next_index']}; resumed steps {resumed} losses "
@@ -2732,9 +2760,10 @@ def phase_train_family(cfg, seq_len, batch, dev) -> dict:
     return {"n_mb": n_mb, "step_s": walls[-1], "peak": peak}
 
 
-def phase_training(timed, get_config, transformer, workdir, dev) -> None:
+def phase_training(timed, get_config, transformer, workdir, dev) -> dict:
     """Phase 10: the training phases in order, one model on the card at a
-    time, each through ``timed``; checkpoints go under ``workdir``."""
+    time, each through ``timed``; checkpoints go under ``workdir``.
+    Returns the ``train`` phase's numbers."""
     olmo = get_config(TRAIN_ARCH)
     timed("train-grad", phase_train_grad, dataclasses.replace(
         olmo, n_layers=TRAIN_GRAD_LAYERS, dtype="float32"), dev)
@@ -2765,6 +2794,443 @@ def phase_training(timed, get_config, transformer, workdir, dev) -> None:
         f"{hybrid['step_s']:.4f} s, peak {hybrid['peak'] / 2 ** 30:.2f} GiB, "
         f"{hybrid['n_mb']} microbatches; 0 flash_attention launches on the "
         f"training path")
+    return trained
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the distributed layer
+# ---------------------------------------------------------------------------
+DIST_TRAIN_STEPS = 6
+DIST_TRAIN_RUNS = 2  # train(mesh=) and unsharded train() runs, in turns
+DIST_DECODE_TOKENS = 16
+DIST_DRYRUN_CELLS = (("olmo-1b", "train_4k"),
+                     ("moonshot-v1-16b-a3b", "decode_32k"))
+DIST_DRYRUN_TIMEOUT_S = 170
+DIST_PHASE_LIMIT_S = 180
+
+
+def _one_rank_mesh(dev):
+    """A world of one rank in this process (NCCL on a card, gloo on the
+    CPU) and its 1 x 1 ``(data, model)`` mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    backend = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+    dist.init_process_group(backend, rank=0, world_size=1,
+                            store=dist.HashStore())
+    return make_local_mesh(1, 1, device=dev)
+
+
+def _start_dryruns(outdir):
+    """The dry run of DIST_DRYRUN_CELLS, one subprocess a cell on the host
+    (a fake world cannot share a process with the card's world), started
+    together; :func:`_finish_dryruns` waits for them."""
+    import os
+    outdir = pathlib.Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for arch, shape in DIST_DRYRUN_CELLS:
+        (outdir / f"{arch}__{shape}__single.json").unlink(missing_ok=True)
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out",
+             str(outdir)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    return procs
+
+
+def _stop(procs) -> None:
+    for _, p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _finish_dryruns(procs, outdir, t0) -> list:
+    """Wait for each dry-run cell; a non-zero exit or a record without
+    ``"ok": true`` fails.  Prints each cell's peak bytes a device, FLOPs,
+    bytes, collectives by kind, dominant term and sharding fallbacks."""
+    recs = []
+    for (arch, shape), p in procs:
+        left = max(1.0, DIST_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
+        out, _ = p.communicate(timeout=left)
+        if p.returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: exit "
+                                 f"{p.returncode}:\n{out[-3000:]}")
+        rec = json.loads((pathlib.Path(outdir)
+                          / f"{arch}__{shape}__single.json").read_text())
+        if rec.get("ok") is not True:
+            raise AssertionError(f"dryrun {arch} {shape}: {rec.get('error')}")
+        rl, coll = rec["roofline"], rec["collectives"]
+        log(f"[dryrun] {arch} x {shape} x {rec['mesh']} ({rec['chips']} "
+            f"ranks, fake world, meta tensors, dispatched in "
+            f"{rec['compile_s']} s on the host): peak "
+            f"{rec['peak_bytes_per_device'] / 2 ** 30:.2f} GiB a device "
+            f"(arguments {rec['memory_analysis']['argument_size_in_bytes'] / 2 ** 30:.3f}"
+            f" GiB, temporaries {rec['memory_analysis']['temp_size_in_bytes'] / 2 ** 30:.3f}"
+            f" GiB), fits 80 GiB {rec['fits_hbm']}; {rl['hlo_flops_per_device']:.4e} "
+            f"FLOPs and {rl['hlo_bytes_per_device']:.4e} bytes a device; "
+            f"collectives {coll['ops']}, wire bytes {coll['wire_bytes']}; "
+            f"terms on H100_SXM (datasheet) compute {rl['t_compute']:.4g} s, "
+            f"memory {rl['t_memory']:.4g} s, collective "
+            f"{rl['t_collective']:.4g} s -> {rl['dominant']}; useful FLOPs "
+            f"ratio {rl['useful_flops_ratio']:.3f}; fallbacks "
+            f"{rec['sharding_fallbacks']}")
+        recs.append(rec)
+    return recs
+
+
+def _full(x):
+    """A DTensor's global value (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def _event_wall(fn, *args):
+    """``fn(*args)`` and its device wall in seconds (CUDA events around
+    it; host wall on the CPU)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t0
+
+
+def _roofline_line(tag, name, kind, cost, cfg, shape, wall):
+    """Price ``cost`` (a StepCost of one rank) on H100_SXM and print its
+    terms beside the measured wall; returns the RooflineReport."""
+    from repro_torch.distributed.roofline import H100_SXM, roofline
+    rl = roofline(name, kind, "1x1", 1,
+                  {"flops": cost.flops, "bytes accessed": cost.bytes_accessed},
+                  cost.collectives, cfg, shape, H100_SXM)
+    log(f"[{tag}] roofline of the sharded step (analyze_step on the 1 x 1 "
+        f"mesh, priced on H100_SXM datasheet rates): {cost.flops:.4e} FLOPs "
+        f"({cost.contraction_flops:.4e} in contractions), "
+        f"{cost.bytes_accessed:.4e} bytes, collectives {cost.collective_ops}"
+        f"; t_compute {rl.t_compute:.4g} s, t_memory {rl.t_memory:.4g} s, "
+        f"bound_time {rl.bound_time:.4g} s ({rl.dominant}); measured wall "
+        f"{wall:.4f} s; bound_time / wall {rl.bound_time / wall:.4f}")
+    return rl
+
+
+def _shares(mf, walls):
+    """(median share, spread) of the bf16 peak over step ``walls``: the
+    share ``mf / (wall x peak)`` at the median wall, and the share at the
+    fastest wall less the share at the slowest."""
+    from repro_torch.distributed.roofline import H100_SXM
+    peak = H100_SXM.peak_flops
+    return (mf / (float(np.median(walls)) * peak),
+            mf / (min(walls) * peak) - mf / (max(walls) * peak))
+
+
+def phase_dist_train(cfg, seq_len, batch, mesh, dev, phase10=None) -> dict:
+    """(a) + (c): the sharded train step of ``cfg`` on ``mesh`` (DTensor
+    parameters, optimizer state and batch; ``remat_none``, the policy
+    phase 10's ``train()`` runs) from seeded parameters: its gradients
+    against the unsharded ``value_and_grad``'s (each leaf within
+    TRAIN_GRAD_TOL of its max |g|), then DIST_TRAIN_STEPS steps in turns
+    with the unsharded ``make_train_step``'s from the same parameters and
+    batch (losses within TRAIN_RESUME_RTOL, each parameter leaf within
+    TRAIN_GRAD_TOL of its update's max), printing whether all are
+    bit-equal; the step under ``analyze_step``, priced on H100_SXM beside
+    its median device wall; the sharded step's share of the bf16 peak held
+    against its twin's, timed in turns with it.  Then ``train(mesh=)``
+    runs phase 10's straight run (``phase10``: its losses and step walls)
+    on the mesh, DIST_TRAIN_RUNS times in turns with the same ``train()``
+    call unsharded: every run's losses within TRAIN_RESUME_RTOL of phase
+    10's, and the mesh runs' share of the bf16 peak (steps 1-5 of each,
+    timed by ``train()`` as phase 10's are) held against the unsharded
+    runs'; phase 10's own share, timed minutes earlier, is printed beside
+    them.  Two shares may differ by at most the sum of their spreads, each
+    from its own walls alone (the share at the fastest step less the share
+    at the slowest)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.roofline import model_flops
+    from repro_torch.distributed.trace_analysis import analyze_step
+    from repro_torch.launch import steps
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import transformer
+    shape = ShapeSpec("card", seq_len, batch, "train")
+    _fresh_card(dev)
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    data = _train_batch(cfg, seq_len, batch, 0, dev)
+    bundle = steps.build_sharded_step(cfg, shape, mesh, variant="remat_none",
+                                      params=params, batch=data)
+    ucfg = dataclasses.replace(bundle.cfg, act_spec=None)
+    n_mb = steps.default_microbatches(cfg, shape, mesh)
+    if n_mb != steps.default_microbatches(cfg, shape):
+        raise AssertionError("dist-train: the 1 x 1 mesh changed "
+                             "default_microbatches")
+    dp, do, db = bundle.example_args
+    # gradients of one microbatch, sharded vs unsharded
+    with implicit_replication():
+        loss_s, g_s = steps.value_and_grad(
+            bundle.cfg, dp, {k: v[:batch // n_mb] for k, v in db.items()})
+    loss_u, g_u = steps.value_and_grad(
+        ucfg, params, {k: v[:batch // n_mb] for k, v in data.items()})
+    worst_g, g_bits = 0.0, True
+    for name, a, b in zip(tree.paths(params), tree.leaves(g_s),
+                          tree.leaves(g_u)):
+        a = a.to_local()
+        g_bits &= bits_equal(a, b)
+        scale = float(b.float().abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if not math.isfinite(err) or err > TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"dist-train {name}: sharded vs unsharded "
+                                 f"gradient {err:.3e} against "
+                                 f"{TRAIN_GRAD_TOL} x {scale:.3e}")
+        worst_g = max(worst_g, err / scale if scale else 0.0)
+    del g_s, g_u
+    # the steps, sharded and unsharded in turns from the same state
+    opt = steps.make_optimizer(ucfg)
+    step = steps.make_train_step(ucfg, opt, n_mb)
+    p, o = dp, do
+    up, uo = params, opt.init(params)
+    walls, losses, uwalls, ulosses = [], [], [], []
+    for _ in range(DIST_TRAIN_STEPS):
+        (p, o, m), w = _event_wall(bundle.step, p, o, db)
+        walls.append(w)
+        losses.append(float(_full(m["loss"])))
+        (up, uo, um), w = _event_wall(step, up, uo, data)
+        uwalls.append(w)
+        ulosses.append(float(um["loss"]))
+    del uo
+    cost = analyze_step(bundle.step, p, o, db)
+    got = [x.to_local() for x in tree.leaves(p)]
+    del p, o, m
+    p_bits = all(bits_equal(a, b) for a, b in zip(got, tree.leaves(up)))
+    for a, b in zip(losses, ulosses):
+        if abs(a - b) > TRAIN_RESUME_RTOL * abs(b):
+            raise AssertionError(f"dist-train: sharded losses {losses}, "
+                                 f"unsharded {ulosses}")
+    worst_p = 0.0
+    for name, a, b, p0 in zip(tree.paths(params), got, tree.leaves(up),
+                              tree.leaves(params)):
+        scale = float((b.float() - p0.float()).abs().max())
+        err = float((a.float() - b.float()).abs().max())
+        if err > TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"dist-train {name}: sharded vs unsharded "
+                                 f"parameters {err:.3e} after "
+                                 f"{DIST_TRAIN_STEPS} steps, update max "
+                                 f"{scale:.3e}")
+        worst_p = max(worst_p, err / scale if scale else 0.0)
+    log(f"[dist-train] {cfg.name} ({cfg.param_count() / 1e9:.3f} B "
+        f"parameters, {cfg.dtype}) at batch {batch} x {seq_len}, "
+        f"{n_mb} microbatches, on a 1 x 1 DeviceMesh "
+        f"{tuple(mesh.mesh_dim_names)} (one-rank "
+        f"{torch.distributed.get_backend()} world), act_spec "
+        f"{bundle.cfg.act_spec[:3]}: gradients worst |sharded - unsharded| "
+        f"/ max |g| {worst_g:.2e} (limit {TRAIN_GRAD_TOL}), bit-equal "
+        f"{g_bits}; losses {[round(x, 6) for x in losses]} vs unsharded "
+        f"{[round(x, 6) for x in ulosses]} (rtol {TRAIN_RESUME_RTOL}), "
+        f"bit-equal {losses == ulosses}; parameters after "
+        f"{DIST_TRAIN_STEPS} steps worst |d| / update max {worst_p:.2e}, "
+        f"bit-equal {p_bits}; device walls sharded "
+        f"{[round(w, 4) for w in walls]} s, unsharded "
+        f"{[round(w, 4) for w in uwalls]} s")
+    wall, uwall = float(np.median(walls[1:])), float(np.median(uwalls[1:]))
+    rl = _roofline_line("dist-train", cfg.name, "train", cost, bundle.cfg,
+                        shape, wall)
+    del got, up, params, data, bundle, dp, do, db
+    mf = model_flops(cfg, shape)
+    share, spread = _shares(mf, walls[1:])
+    ushare, uspread = _shares(mf, uwalls[1:])
+    msg = (f"[dist-train] model_flops / (wall x peak), steps 2-"
+           f"{DIST_TRAIN_STEPS} in turns: sharded {share:.4f} (spread "
+           f"{spread:.4f}), unsharded twin {ushare:.4f} (spread "
+           f"{uspread:.4f}); |difference| {abs(share - ushare):.4f} against "
+           f"the spreads' sum {spread + uspread:.4f}")
+    if abs(share - ushare) > spread + uspread:
+        raise AssertionError(msg + ": the sharded step is slower than its "
+                             "twin")
+    log(msg)
+    # train(mesh=) and phase 10's straight run (the same train() call
+    # unsharded) in turns, each run timed by train() as phase 10's is
+    runs = {"mesh": [], "unsharded": []}
+    for _ in range(DIST_TRAIN_RUNS):
+        for key, m in (("unsharded", None), ("mesh", mesh)):
+            _fresh_card(dev)
+            _, _, hist = train_mod.train(cfg, shape,
+                                         steps=TRAIN_RESUMED_STEPS,
+                                         ckpt_dir=None, mesh=m,
+                                         log_every=TRAIN_RESUMED_STEPS,
+                                         device=dev)
+            torch.cuda.synchronize()
+            runs[key].append(hist)
+    tlosses = [[h["loss"] for h in hist] for hist in runs["mesh"]]
+    twalls = [h["time_s"] for hist in runs["mesh"] for h in hist[1:]]
+    rwalls = [h["time_s"] for hist in runs["unsharded"] for h in hist[1:]]
+    tshare, tspread = _shares(mf, twalls)
+    rshare, rspread = _shares(mf, rwalls)
+    msg = (f"[dist-train] train(mesh=) of {TRAIN_RESUMED_STEPS} steps on the "
+           f"1 x 1 mesh, {DIST_TRAIN_RUNS} runs in turns with phase 10's "
+           f"straight run unsharded: losses "
+           f"{[round(x, 6) for x in tlosses[0]]}, bit-equal across runs "
+           f"{all(x == tlosses[0] for x in tlosses)}; step walls (steps 1-"
+           f"{TRAIN_RESUMED_STEPS - 1}) on the mesh "
+           f"{[round(w, 4) for w in twalls]} s, unsharded "
+           f"{[round(w, 4) for w in rwalls]} s; model_flops / (wall x peak) "
+           f"on the mesh {tshare:.4f} (spread {tspread:.4f}), unsharded "
+           f"{rshare:.4f} (spread {rspread:.4f}); |difference| "
+           f"{abs(tshare - rshare):.4f} against the spreads' sum "
+           f"{tspread + rspread:.4f}")
+    if phase10 is not None:
+        ref_losses = phase10["losses"]
+        for hist in runs["mesh"] + runs["unsharded"]:
+            losses = [h["loss"] for h in hist]
+            if len(losses) != len(ref_losses) or any(
+                    abs(a - b) > TRAIN_RESUME_RTOL * abs(b)
+                    for a, b in zip(losses, ref_losses)):
+                raise AssertionError(f"dist-train: train() losses {losses},"
+                                     f" phase 10's straight run {ref_losses}")
+        ref, ref_spread = _shares(mf, phase10["step_walls"])
+        msg += (f"; phase 10's losses bit-equal "
+                f"{all(x == ref_losses for x in tlosses)}, its own walls "
+                f"{[round(w, 4) for w in phase10['step_walls']]} s gave "
+                f"{ref:.4f} (spread {ref_spread:.4f}) minutes earlier")
+    if abs(tshare - rshare) > tspread + rspread:
+        raise AssertionError(msg + ": the shares disagree")
+    log(msg)
+    return {"wall": wall, "uwall": uwall, "train_wall":
+            float(np.median(twalls)), "share": tshare, "ushare": rshare,
+            "bound": rl.bound_time}
+
+
+def phase_dist_serve(cfg, params, prompts, mesh, dev) -> tuple:
+    """(b) + (c): each prompt through the sharded prefill step on
+    ``mesh`` (its attention through ``local_map`` into the flash kernel),
+    its logits bit-equal to the unsharded ``prefill``'s; then
+    DIST_DECODE_TOKENS greedy tokens through the sharded decode step from
+    the unsharded prefill's caches, each step's logits within
+    LM_LOGIT_TOL of the unsharded ``decode_step``'s on the same token;
+    every prefill and decode step timed (CUDA events) beside its
+    unsharded twin; the longest prompt's sharded prefill analysed and
+    priced on H100_SXM.  Returns (flash launches in the sharded prefills, worst decode
+    difference)."""
+    from repro_torch import tree
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed.sharding import distribute, make_batch_sharding
+    from repro_torch.distributed.trace_analysis import analyze_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer
+    launches, worst, decode_bits, rows = 0, 0.0, True, []
+    for toks in prompts:
+        T = len(toks)
+        tok = torch.from_numpy(toks)[None].to(dev)
+        shape = ShapeSpec(f"p{T}", T, 1, "prefill")
+        b = steps.build_sharded_step(cfg, shape, mesh, params=params,
+                                     batch={"tokens": tok})
+        with torch.no_grad():
+            before = fa.flash_attention.launches
+            (logits, _), wall = _event_wall(b.step, *b.example_args)
+            n = fa.flash_attention.launches - before
+            launches += n
+            (want, _), uwall = _event_wall(transformer.prefill, cfg, params,
+                                           tok)
+            if not bits_equal(logits.to_local(), want):
+                raise AssertionError(f"dist-serve prompt {T}: sharded "
+                                     f"prefill logits differ from the "
+                                     f"unsharded prefill's")
+            if T == max(len(t) for t in prompts):
+                cost = analyze_step(b.step, *b.example_args)
+                _roofline_line("dist-serve", cfg.name, f"prefill {T}", cost,
+                               b.cfg, shape, wall)
+            del b, logits
+            # decode from the unsharded prefill's caches
+            first, caches = transformer.prefill(
+                cfg, params, tok, max_len=T + DIST_DECODE_TOKENS)
+            dshape = ShapeSpec(f"d{T}", T + DIST_DECODE_TOKENS, 1, "decode")
+            nxt = torch.argmax(first, dim=-1)[:, None].to(torch.int32)
+            d = steps.build_sharded_step(
+                cfg, dshape, mesh, params=params, batch={"tokens": nxt},
+                caches=tree.map(torch.clone, caches), pos=T)
+            dparams, dcaches, _ = d.example_args
+            tok_sh = make_batch_sharding(d.cfg, mesh, dshape)
+            err, dwalls, udwalls = 0.0, [], []
+            for i in range(DIST_DECODE_TOKENS):
+                (ls, dcaches), w = _event_wall(d.step, dparams, dcaches, {
+                    "tokens": distribute(nxt, tok_sh), "pos": T + i})
+                dwalls.append(w)
+                (lu, caches), w = _event_wall(transformer.decode_step, cfg,
+                                              params, nxt, caches, T + i)
+                udwalls.append(w)
+                decode_bits &= bits_equal(ls.to_local(), lu)
+                err = max(err, float((ls.to_local().float()
+                                      - lu.float()).abs().max()))
+                nxt = torch.argmax(lu, dim=-1)[:, None].to(torch.int32)
+            if err > LM_LOGIT_TOL:
+                raise AssertionError(f"dist-serve prompt {T}: sharded "
+                                     f"decode logits {err} from the "
+                                     f"unsharded decode's")
+            worst = max(worst, err)
+            rows.append((T, n, round(wall, 4), round(uwall, 4),
+                         round(float(np.median(dwalls)), 5),
+                         round(float(np.median(udwalls)), 5), err))
+            del d, dparams, dcaches, caches
+    if launches <= 0:
+        raise AssertionError("dist-serve: no flash_attention launch in the "
+                             "sharded prefills")
+    log(f"[dist-serve] {cfg.name} on the 1 x 1 mesh: (prompt, flash "
+        f"launches, prefill device wall s sharded, unsharded, decode step "
+        f"median device wall s sharded, unsharded, decode max |d|) {rows}; "
+        f"prefill logits bit-equal to the unsharded prefill's for all "
+        f"{len(prompts)} prompts; {DIST_DECODE_TOKENS} decode steps each "
+        f"within {worst:.4g} of the unsharded decode (bound {LM_LOGIT_TOL}),"
+        f" bit-equal {decode_bits}; {launches} flash_attention launches")
+    return launches, worst
+
+
+def phase_distributed(timed, get_config, transformer, phase10, dev) -> int:
+    """Phase 11: the distributed layer.  On a one-rank mesh of the card
+    the sharded train step (olmo-1b, phase 10's shape) runs against its
+    unsharded twin and the roofline; then the dry run of two production
+    cells starts on the host in subprocesses while the sharded serve steps
+    (qwen2-7b, phase 8's prompts) run on the card; the dry run is waited
+    for last.  Returns the flash launches of the sharded prefills."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    outdir = ROOT / "build" / "dryrun"
+    procs = []
+    try:
+        mesh = _one_rank_mesh(dev)
+        try:
+            seq_len, batch = TRAIN_SHAPE
+            timed("dist-train", phase_dist_train, get_config(TRAIN_ARCH),
+                  seq_len, batch, mesh, dev, phase10)
+            # the dry run's host work starts after the timed train steps,
+            # which are host-bound
+            procs = _start_dryruns(outdir)
+            _fresh_card(dev)
+            cfg = get_config(LM_ARCH)
+            params = transformer.init_lm(
+                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+            launches, _ = timed("dist-serve", phase_dist_serve, cfg, params,
+                                _lm_prompts(cfg.vocab_size), mesh, dev)
+            del params
+        finally:
+            dist.destroy_process_group()
+        timed("dist-dryrun", _finish_dryruns, procs, outdir, t0)
+    finally:
+        _stop(procs)
+    wall = time.perf_counter() - t0
+    if wall > DIST_PHASE_LIMIT_S:
+        raise AssertionError(f"distributed: phase 11 took {wall:.1f} s, "
+                             f"limit {DIST_PHASE_LIMIT_S} s")
+    log(f"[distributed] phase 11 wall {wall:.1f} s (limit "
+        f"{DIST_PHASE_LIMIT_S} s)")
+    return launches
 
 
 def phase_registers(cuda_build):
@@ -2912,8 +3378,12 @@ def main() -> int:
     log(f"[lm-families] flash_attention launches by served model: "
         f"{fa_by_path}")
     launches_fa = sum(fa_by_path.values())
-    phase_training(timed, get_config, transformer,
-                   ROOT / "build" / "train-ckpt", dev)
+    trained = phase_training(timed, get_config, transformer,
+                             ROOT / "build" / "train-ckpt", dev)
+    fa_by_path[f"{LM_ARCH} sharded prefill"] = timed(
+        "distributed", phase_distributed, timed, get_config, transformer,
+        trained, dev)
+    launches_fa = sum(fa_by_path.values())
     rows = timed("times", phase_times, bsm, dev)
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)

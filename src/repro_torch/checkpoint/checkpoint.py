@@ -17,6 +17,15 @@ written as the reference writes it, its two bytes as numpy's ``|V2``; on
 restore a ``|V2`` leaf is read back as bfloat16 bits, and any other dtype
 is cast to the like-leaf's.  (The reference itself cannot restore its
 ``|V2`` leaves: numpy has no cast from them.)
+
+On a mesh a DTensor leaf is saved whole (``full_tensor``, a collective
+every rank joins; only rank 0 writes), and ``restore_checkpoint(...,
+shardings=)`` reshards on load: each full leaf is read into host memory
+and laid out by its target
+:class:`~repro_torch.distributed.sharding.NamedSharding`, only the rank's
+shard copied to the device, so a checkpoint
+saved on any mesh (or by the reference on any device count) restores onto
+any other.
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import distribute_from_host
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "AsyncCheckpointer"]
@@ -50,6 +60,8 @@ def _to_numpy(x) -> np.ndarray:
     tensor as its raw two bytes (``|V2``)."""
     if not torch.is_tensor(x):
         return np.asarray(x)
+    if hasattr(x, "full_tensor"):  # a DTensor: gather its shards
+        x = x.full_tensor()
     x = x.detach().to("cpu", copy=True)  # a snapshot, also of a CPU tensor
     if x.dtype == torch.bfloat16:
         return x.view(torch.int16).numpy().view(_BF16_BYTES)
@@ -76,16 +88,31 @@ def _save_tree(path: pathlib.Path, name: str, tree_: Any) -> dict:
 
 
 def _load_tree(path: pathlib.Path, name: str, like: Any,
-               dev: torch.device) -> Any:
-    with np.load(path / f"{name}.npz") as z:
-        leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+               dev: torch.device, shardings: Any = None) -> Any:
+    """The tree ``name`` read one leaf at a time; with ``shardings`` (a
+    tree of NamedSharding like ``like``) each leaf is laid out from host
+    memory, only this rank's shard copied to ``dev``."""
     like_leaves, treedef = tree.flatten(like)
-    if len(leaves) != len(like_leaves):
-        raise ValueError(
-            f"checkpoint {name}: {len(leaves)} leaves, expected "
-            f"{len(like_leaves)} — structure changed?")
-    return tree.unflatten(treedef, [_from_numpy(a, l, dev) for a, l in
-                                    zip(leaves, like_leaves)])
+    shards = ([None] * len(like_leaves) if shardings is None
+              else tree.leaves(shardings))
+    host = torch.device("cpu")
+    out = []
+    with np.load(path / f"{name}.npz") as z:
+        if len(z.files) != len(like_leaves):
+            raise ValueError(
+                f"checkpoint {name}: {len(z.files)} leaves, expected "
+                f"{len(like_leaves)} — structure changed?")
+        if len(shards) != len(like_leaves):
+            raise ValueError(f"shardings of {name}: {len(shards)} leaves, "
+                             f"expected {len(like_leaves)}")
+        for i, (l, sh) in enumerate(zip(like_leaves, shards)):
+            a = z[f"leaf_{i}"]
+            if sh is None:
+                out.append(_from_numpy(a, l, dev))
+            else:
+                out.append(distribute_from_host(_from_numpy(a, l, host), sh,
+                                                dev))
+    return tree.unflatten(treedef, out)
 
 
 # ---------------------------------------------------------------------------
@@ -130,9 +157,13 @@ def latest_step(ckpt_dir: str | os.PathLike) -> int | None:
 
 def restore_checkpoint(ckpt_dir: str | os.PathLike, likes: dict[str, Any],
                        step: int | None = None, *,
-                       device: str | torch.device | None = None):
+                       device: str | torch.device | None = None,
+                       shardings: dict[str, Any] | None = None):
     """Restore trees by name onto ``device`` (default ``"cuda"``), each
-    leaf in its like-leaf's dtype.
+    leaf in its like-leaf's dtype; reshards onto ``shardings`` (name ->
+    tree of :class:`~repro_torch.distributed.sharding.NamedSharding`
+    like the tree) if given: every rank reads each full leaf into host
+    memory and copies only its shard to the device.
 
     Returns (step, {name: tree}, extras) or (None, None, None) when no
     complete checkpoint exists (fresh start).
@@ -144,9 +175,18 @@ def restore_checkpoint(ckpt_dir: str | os.PathLike, likes: dict[str, Any],
         return None, None, None
     path = root / f"step_{step}"
     manifest = json.loads((path / "manifest.json").read_text())
-    out = {name: _load_tree(path, name, like, dev)
-           for name, like in likes.items()}
+    out = {}
+    for name, like in likes.items():
+        out[name] = _load_tree(path, name, like, dev,
+                               (shardings or {}).get(name))
     return step, out, manifest.get("extras", {})
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return (dist.get_rank() if dist.is_available() and dist.is_initialized()
+            else 0)
 
 
 class AsyncCheckpointer:
@@ -165,6 +205,9 @@ class AsyncCheckpointer:
         # snapshot to host memory now: the caller updates the tensors next
         host_trees = {name: tree.map(_to_numpy, tree_)
                       for name, tree_ in trees.items()}
+
+        if _rank() != 0:  # every rank joined the snapshot; one writes
+            return
 
         def work():
             try:

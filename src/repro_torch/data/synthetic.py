@@ -5,7 +5,9 @@
     the numpy stream is the reference's, so tokens and labels are
     byte-equal to its batches and a restart at step N reproduces them.
   * **Shard-aware**: each data-parallel host materializes only its slice
-    of the global batch (``host_id``/``num_hosts``).
+    of the global batch (``host_id``/``num_hosts``), or every rank of a
+    mesh lays the global batch out as a DTensor (``DataIterator``'s
+    ``sharding``).
   * **Checkpointable**: the iterator's state is one integer
     (``next_index``); it rides inside the training checkpoint, so resume
     never replays or skips a batch.
@@ -80,15 +82,24 @@ class SyntheticLMDataset:
 
 @dataclasses.dataclass
 class DataIterator:
-    """Stateful wrapper whose state is checkpointable (one int)."""
+    """Stateful wrapper whose state is checkpointable (one int).  Given a
+    ``sharding`` (:func:`repro_torch.distributed.sharding.make_batch_sharding`)
+    each global batch is placed as a DTensor laid out by it: every rank
+    builds the same global batch and keeps its shard."""
 
     dataset: SyntheticLMDataset
     device: str | torch.device | None = None
     next_index: int = 0
+    sharding: object = None
 
     def __next__(self):
         batch = self.dataset.global_arrays(self.next_index, self.device)
         self.next_index += 1
+        if self.sharding is not None:
+            from repro_torch.distributed.sharding import distribute
+
+            batch = {k: distribute(v, self.sharding)
+                     for k, v in batch.items()}
         return batch
 
     def __iter__(self):

@@ -7,10 +7,19 @@ of the post-training-quantization flow (``quant/ptq.py``) and
 :func:`flash_attention` the tiled attention of the LM's full prefill
 (``models/layers.py``).  Each launches its Hopper kernel for CUDA tensors
 and runs the kernel's plain version for CPU tensors.
+
+Each goes through a ``torch.library`` custom op (``repro_torch::*``) with a
+fake implementation, which is what ``meta`` operands (the dry run) run:
+nothing is launched and an empty result of the output's shape comes back.
+Its FLOPs are registered in ``torch.utils.flop_counter``'s registry, so a
+FLOP counter or a dispatch mode (``repro_torch.distributed.trace_analysis``)
+charges a kernel's launch as one op with the FLOPs of the product it
+computes.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import bitserial_matmul as _bsm
 from repro_torch.kernels import flash_attention as _fa
@@ -18,6 +27,27 @@ from repro_torch.kernels import quant_matmul as _qm
 
 __all__ = ["bitserial_matmul_exact", "quant_matmul", "flash_attention",
            "pack_weights"]
+
+
+@torch.library.custom_op("repro_torch::bitserial_matmul_exact",
+                         mutates_args=())
+def _bitserial_op(x_q: torch.Tensor, planes: torch.Tensor, n_bits: int,
+                  w4a4: bool) -> torch.Tensor:
+    if w4a4:
+        return _bsm.bitserial_matmul_a4(x_q, planes, 1.0, None, n_bits=n_bits,
+                                        out_dtype=torch.int32, signed=False)
+    return _bsm.bitserial_matmul(x_q, planes, 1.0, None, n_bits=n_bits,
+                                 out_dtype=torch.int32, signed=False)
+
+
+@_bitserial_op.register_fake
+def _(x_q, planes, n_bits, w4a4):
+    return x_q.new_empty((x_q.shape[0], planes.shape[-1]), dtype=torch.int32)
+
+
+@register_flop_formula(torch.ops.repro_torch.bitserial_matmul_exact)
+def _(x_shape, planes_shape, n_bits, w4a4, *args, out_shape=None, **kwargs):
+    return 2 * x_shape[0] * planes_shape[-2] * planes_shape[-1]
 
 
 def bitserial_matmul_exact(x_q: torch.Tensor, planes: torch.Tensor, *,
@@ -28,11 +58,7 @@ def bitserial_matmul_exact(x_q: torch.Tensor, planes: torch.Tensor, *,
     ``w4a4=True`` takes nibble-packed activations ``[M, ceil(K/2)]``
     (:func:`~repro_torch.kernels.bitserial_matmul.pack_activation_nibbles`)
     through the W4A4 kernel, with unsigned nibbles."""
-    if w4a4:
-        return _bsm.bitserial_matmul_a4(x_q, planes, 1.0, None, n_bits=n_bits,
-                                        out_dtype=torch.int32, signed=False)
-    return _bsm.bitserial_matmul(x_q, planes, 1.0, None, n_bits=n_bits,
-                                 out_dtype=torch.int32, signed=False)
+    return _bitserial_op(x_q, planes, n_bits, w4a4)
 
 
 def pack_weights(w_q: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
@@ -44,16 +70,57 @@ def pack_weights(w_q: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
     return (w_q.to(torch.int64) & ((1 << n_bits) - 1)).to(torch.uint8)
 
 
+@torch.library.custom_op("repro_torch::quant_matmul", mutates_args=())
+def _quant_op(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: float,
+              w_scale: torch.Tensor,
+              bias: torch.Tensor | None) -> torch.Tensor:
+    return _qm.quant_matmul(x_q, w_q, x_scale, w_scale, bias)
+
+
+@_quant_op.register_fake
+def _(x_q, w_q, x_scale, w_scale, bias):
+    return x_q.new_empty((x_q.shape[0], w_q.shape[1]), dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.quant_matmul)
+def _(x_shape, w_shape, *args, out_shape=None, **kwargs):
+    return 2 * x_shape[0] * x_shape[1] * w_shape[1]
+
+
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
                  w_scale: torch.Tensor,
                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """W8A8 GEMM with the fused dequantization epilogue
     (:mod:`repro_torch.kernels.quant_matmul`)."""
-    return _qm.quant_matmul(x_q, w_q, x_scale, w_scale, bias)
+    return _quant_op(x_q, w_q, float(x_scale), w_scale, bias)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool) -> torch.Tensor:
+    return _fa.flash_attention(q, k, v, causal=causal)
+
+
+@_flash_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs):
+    """The score and P.V products over the (query, key) pairs attended:
+    query row i attends keys 0..min(i, Tk - 1) when causal."""
+    B, H, Tq, D = q_shape
+    Tk = k_shape[2]
+    pairs = Tq * Tk
+    if causal:
+        m = min(Tq, Tk)
+        pairs = m * (m + 1) // 2 + (Tq - m) * Tk
+    return 4 * B * H * D * pairs
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """Tiled GQA attention with an online softmax
     (:mod:`repro_torch.kernels.flash_attention`)."""
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _flash_op(q, k, v, causal)

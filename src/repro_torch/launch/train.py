@@ -32,7 +32,11 @@ from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
 from repro_torch.configs import REGISTRY, get_config, reduced_config
 from repro_torch.configs.base import SHAPES, ShapeSpec
 from repro_torch.data import DataIterator, SyntheticLMDataset
+from repro_torch import tree
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (ShardingReport, distribute,
+                                              make_batch_sharding,
+                                              make_param_shardings)
 from repro_torch.launch import steps as S
 from repro_torch.models import transformer as T
 
@@ -63,32 +67,53 @@ class Watchdog:
 
 
 def train(cfg, shape: ShapeSpec, *, steps: int, ckpt_dir: str | None,
-          ckpt_every: int = 50, seed: int = 0, log_every: int = 10,
-          watchdog_factor: float = 3.0,
+          ckpt_every: int = 50, mesh=None, seed: int = 0,
+          log_every: int = 10, watchdog_factor: float = 3.0,
           device: str | torch.device | None = None):
     """Train ``cfg`` on the synthetic stream for ``steps`` steps (counted
     from 0, so a resumed run continues to the same total) on ``device``
     (default ``"cuda"``).  Returns ``(params, opt_state, history)``, one
     history entry a step run: ``step``, ``loss``, ``grad_norm``,
-    ``time_s``, ``straggler``."""
+    ``time_s``, ``straggler``.
+
+    Given a ``mesh`` (:func:`repro_torch.launch.mesh.make_local_mesh`) the
+    parameters, optimizer state and batches are DTensors laid out by the
+    sharding rules, the activations by ``cfg.act_spec``, and the
+    microbatch count counts the batch shards, as the reference's ``train``
+    does; a checkpoint restores onto the mesh.  Without one the run stays
+    on ``device`` unsharded."""
     dev = resolve_device(device)
+    tok_sh = params_sh = opt_sh = None
+    if mesh is not None:
+        tok_sh = make_batch_sharding(cfg, mesh, shape, ShardingReport())
+        cfg = dataclasses.replace(
+            cfg, act_spec=S._act_spec(cfg, shape, mesh, tok_sh.spec) + (mesh,))
     optimizer = S.make_optimizer(cfg, total=steps)
-    n_mb = S.default_microbatches(cfg, shape)
+    n_mb = S.default_microbatches(cfg, shape, mesh)
     step_fn = S.make_train_step(cfg, optimizer, n_mb)
 
     dataset = SyntheticLMDataset(cfg.vocab_size, shape.seq_len,
                                  shape.global_batch, seed=seed)
-    it = DataIterator(dataset, dev)
+    it = DataIterator(dataset, dev, sharding=tok_sh)
 
     params = T.init_lm(cfg, torch.Generator(dev).manual_seed(seed),
                        device=dev)
     opt_state = optimizer.init(params)
+    if mesh is not None:
+        params_sh = make_param_shardings(cfg, mesh, params)
+        opt_sh = S._opt_state_shardings(optimizer, params_sh, opt_state,
+                                        mesh)
+        params = tree.map(distribute, params, params_sh)
+        opt_state = tree.map(distribute, opt_state, opt_sh)
+        step_fn = S._under_mesh(step_fn)
     start = 0
 
     ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         step0, trees, extras = restore_checkpoint(
-            ckpt_dir, {"params": params, "opt_state": opt_state}, device=dev)
+            ckpt_dir, {"params": params, "opt_state": opt_state}, device=dev,
+            shardings=(None if mesh is None else
+                       {"params": params_sh, "opt_state": opt_sh}))
         params, opt_state = trees["params"], trees["opt_state"]
         it.load_state_dict(extras["data"])
         start = step0

@@ -14,15 +14,28 @@ int8 payloads with float32 per-(position, head) scales ``{"ks", "vs"}`` of
 ``W = min(window, seq_len)`` slots (absolute position p at slot p % W).
 Prefill and decode write the caches in place (and return them) instead of
 building new arrays as the reference does.
+
+On DTensor operands (a step sharded over a mesh) :func:`flash_attention`,
+:func:`decode_attention_q8` and, over a cache whose length is not split,
+the bf16 decode attention run through ``local_map`` on each rank's batch
+and head shards (:func:`_local_heads`): heads and batch rows are
+independent, so each rank's local attention is exact, and the CUDA kernel
+runs on the local shard.  A cache split along its length (sequence
+parallelism) is attended by DTensor's own ops (a softmax over the split).
+Cache writes into a DTensor cache go to each rank's own part of the slot
+range (:func:`_write_slots`).
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.trace_analysis import note_loop
 from repro_torch.kernels import ops
 
 __all__ = ["dense_init", "embed_init", "rms_norm", "layer_norm", "norm_init",
@@ -182,8 +195,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     On a CUDA device the full prefill (``window == 0``) runs the
     flash-attention kernel, and ``q_offset`` or ``kv_valid`` raise
-    ``NotImplementedError``.  Otherwise this is the reference's scan, on
-    the operands' device; ``window > 0`` takes the banded path (a fixed
+    ``NotImplementedError`` (``meta`` tensors, the dry run's, take the
+    same path).  Otherwise this is the reference's scan, on the operands'
+    device; ``window > 0`` takes the banded path (a fixed
     ``window + q_chunk`` KV strip per Q tile), which the reference also
     computes outside its Pallas kernel.
 
@@ -193,6 +207,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     step differentiates this same scan.  The kernel wrapper refuses such
     operands, so no path can detach attention from its gradient.
     """
+    if is_dtensor(q):
+        return _local_heads(functools.partial(
+            flash_attention, causal=causal, window=window, q_offset=q_offset,
+            kv_valid=kv_valid, q_chunk=q_chunk, kv_chunk=kv_chunk),
+            q, k, v)
     dev = q.device
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
@@ -228,6 +247,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         # banded: strip width rounded up to kv_chunk multiple
         strip = int(math.ceil((window + q_chunk) / kv_chunk)) * kv_chunk
         strip = min(strip, Tk)
+        note_loop("flash_attention/q_tiles", nq)
         for i in range(nq):
             qi = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
             qpos = i * q_chunk + arange(q_chunk) + q_offset
@@ -244,6 +264,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             k = F.pad(k, (0, 0, 0, pad_k))
             v = F.pad(v, (0, 0, 0, pad_k))
         nk = k.shape[2] // kv_chunk
+        note_loop("flash_attention/q_tiles", nq)
+        note_loop("flash_attention/kv_tiles", nk)
         for i in range(nq):
             qi = qg[:, :, :, i * q_chunk:(i + 1) * q_chunk]
             qpos = i * q_chunk + arange(q_chunk) + q_offset
@@ -270,6 +292,67 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     out = torch.cat(tiles, dim=3)  # [B, Hkv, G, Tqp, D]
     out = out.reshape(B, H, Tqp, D)[:, :, :Tq]
     return out.to(v.dtype)
+
+
+
+def _local_heads(fn, q, *kv, **kwargs):
+    """``fn(q, *kv, **kwargs)`` on each rank's local shards, through
+    ``local_map``: a mesh dim that splits q's batch (dim 0) or, where every
+    operand's head count divides, its heads (dim 1) keeps that split for
+    all the operands; every other mesh dim is replicated (sequence and
+    head-size splits are gathered).  Rows and heads are independent, so
+    the local results are the global result's shards.  The output is laid
+    out like q's batch and head split."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    heads = [q.shape[1]] + [t.shape[1] for t in kv]
+    target = []
+    for i, pl in enumerate(q.placements):
+        n = mesh.size(i)
+        if pl == Shard(0):
+            target.append(Shard(0))
+        elif pl == Shard(1) and all(h % n == 0 for h in heads):
+            heads = [h // n for h in heads]
+            target.append(Shard(1))
+        else:
+            target.append(Replicate())
+    return local_map(functools.partial(fn, **kwargs), out_placements=target,
+                     in_placements=(target,) * (1 + len(kv)),
+                     device_mesh=mesh, redistribute_inputs=True)(q, *kv)
+
+
+def _splits(x, dim: int) -> bool:
+    """A DTensor ``x`` is split on ``dim`` by some mesh dim."""
+    from torch.distributed.tensor import Shard
+
+    return is_dtensor(x) and Shard(dim) in x.placements
+
+
+def _write_slots(dst, start: int, src) -> None:
+    """``dst[:, :, start:start + n] = src`` in place (n = src.shape[2]),
+    cast to dst's dtype.  A DTensor ``dst`` whose slot dim is sharded
+    takes, on each rank, the part of the range its local shard holds."""
+    n = src.shape[2]
+    if not is_dtensor(dst):
+        dst[:, :, start:start + n] = src.to(dst.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh = dst.device_mesh
+    want = tuple(Replicate() if p == Shard(2) or not p.is_shard() else p
+                 for p in dst.placements)
+    src = src.redistribute(mesh, want).to_local().to(dst.dtype)
+    local = dst.to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        dst.shape, mesh, dst.placements)
+    lo, hi = max(start, offset[2]), min(start + n, offset[2] + shape[2])
+    if lo < hi:
+        local[:, :, lo - offset[2]:hi - offset[2]] = \
+            src[:, :, lo - start:hi - start]
 
 
 def _is_zero(x) -> bool:
@@ -327,11 +410,13 @@ def _cache_write(cache: dict, new: dict, slot) -> None:
     the cache like ``dynamic_update_slice``) or an int32 ``[B]`` vector."""
     for name, val in new.items():
         if torch.is_tensor(slot):
+            if is_dtensor(cache[name]):
+                raise NotImplementedError(
+                    "per-row decode positions on a sharded cache")
             _cache_row_update(cache[name], val, slot)
         else:
             W = cache[name].shape[2]
-            s0 = min(max(slot, 0), W - 1)
-            cache[name][:, :, s0:s0 + 1] = val.to(cache[name].dtype)
+            _write_slots(cache[name], min(max(slot, 0), W - 1), val)
 
 
 def _attend(q, k_cache, v_cache, mask, scale):
@@ -352,6 +437,9 @@ def _attend(q, k_cache, v_cache, mask, scale):
 def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
     """Single-token attention over a [B,Hkv,S,D] cache; pos = current
     index (scalar, or int32 [B] per-row positions)."""
+    if is_dtensor(q) and not _splits(k_cache, 2):
+        return _local_heads(decode_attention, q, k_cache, v_cache, pos=pos,
+                            window=window)
     S, D = k_cache.shape[2], q.shape[-1]
     out = _attend(q, k_cache, v_cache, _decode_mask(pos, S, window),
                   1.0 / math.sqrt(D))
@@ -394,15 +482,21 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
                          slot)
             ring = (dict(ring_slot=slot, ring_len=ring_len) if window > 0
                     else {})
-            out = decode_attention_q8(q, cache["k"], cache["ks"], cache["v"],
-                                      cache["vs"], cache_pos, **ring)
+            attend = decode_attention_q8
+            if is_dtensor(q):
+                attend = functools.partial(_local_heads, decode_attention_q8)
+            out = attend(q, cache["k"], cache["ks"], cache["v"],
+                         cache["vs"], pos=cache_pos, **ring)
         else:
             _cache_write(cache, {"k": k, "v": v}, slot)
             if window > 0:
                 # ring buffer: positions are implicit; mask by slot age
-                out = _attend(q, cache["k"], cache["v"],
-                              _ring_mask(slot, ring_len, W),
-                              1.0 / math.sqrt(cfg.hd))
+                attend = _attend
+                if is_dtensor(q) and not _splits(cache["k"], 2):
+                    attend = functools.partial(_local_heads, _attend)
+                out = attend(q, cache["k"], cache["v"],
+                             mask=_ring_mask(slot, ring_len, W),
+                             scale=1.0 / math.sqrt(cfg.hd))
             else:
                 out = decode_attention(q, cache["k"], cache["v"], cache_pos)
         out = out.to(x.dtype)
@@ -421,9 +515,8 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
                 kq, ks1 = kv_quantize(k)
                 vq, vs1 = kv_quantize(v)
                 new = {"k": kq, "v": vq, "ks": ks1, "vs": vs1}
-            n = k.shape[2]
             for name, val in new.items():
-                cache[name][:, :, :n] = val.to(cache[name].dtype)
+                _write_slots(cache[name], 0, val)
     Tq = out.shape[2]
     out = out.transpose(1, 2).reshape(B, Tq, cfg.n_heads * cfg.hd)
     return out @ p["wo"], cache

@@ -10,9 +10,12 @@ implementation: ``einsum`` builds one-hot dispatch and combine tensors,
 ``scatter`` adds each kept token into its buffer row (an overflow row ``C``
 takes the dropped ones) and gathers the results back.
 
-The reference's expert-parallel sharding constraints (``_ep_axes``,
-``_constrain_ep``) anchor the dispatch layout on a device mesh; on one GPU
-there is no mesh, so they have no counterpart here.
+EP sharding: the expert axis of the stacked expert weights maps to the
+``model`` mesh axis; token groups ride the batch axes.  On a mesh
+(``cfg.act_spec`` set, DTensor operands) :func:`_constrain_ep` lays the
+expert-major buffers out groups x batch axes, experts x ``model``, so the
+dispatch is an all-to-all-class exchange of tokens, as the reference
+anchors it.
 """
 from __future__ import annotations
 
@@ -22,11 +25,41 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.layers import dense_init
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_einsum", "moe_apply_scatter"]
 
 _F32 = torch.float32
+
+
+def _ep_axes(cfg: ModelConfig):
+    """(group_axes, expert_axis) for EP sharding constraints, from
+    ``cfg.act_spec``.  Groups ride the non-expert batch axes; experts ride
+    'model'.  None when unconstrained (tests, one device)."""
+    if cfg.act_spec is None:
+        return None, None
+    b = cfg.act_spec[0]
+    flat = b if isinstance(b, tuple) else ((b,) if b else ())
+    if "model" not in flat:
+        return None, None
+    g = tuple(a for a in flat if a != "model") or None
+    return g, "model"
+
+
+def _constrain_ep(cfg: ModelConfig, xe):
+    """xe: [G, E, C, d] expert-major buffer -> groups x data, experts x
+    model: anchors the all-to-all dispatch layout (without it the stacked
+    expert weights may be gathered instead of the tokens exchanged)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.sharding import to_placements
+
+    g, e = _ep_axes(cfg)
+    if e is None or not isinstance(xe, DTensor):
+        return xe
+    mesh = cfg.act_spec[3]
+    return xe.redistribute(mesh, to_placements((g, e, None, None), mesh))
 
 
 def moe_init(cfg: ModelConfig, generator, device=None,
@@ -73,15 +106,67 @@ def _topk(probs, k: int):
 
 def _expert_ffn(cfg: ModelConfig, p: dict, xe):
     """xe: [G, E, C, d] -> [G, E, C, d] through each expert's SwiGLU."""
+    if is_dtensor(xe):
+        return _local_experts(cfg, p, xe)
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"])
     g = torch.einsum("gecd,edf->gecf", xe, p["wg"])
     return torch.einsum("gecf,efd->gecd", F.silu(g) * h, p["wo"])
+
+
+
+def _local_experts(cfg: ModelConfig, p: dict, xe):
+    """:func:`_expert_ffn` of a DTensor buffer on each rank's shard through
+    ``local_map``: a mesh dim that splits the groups (dim 0) keeps them
+    split, one that splits the experts (dim 1) splits the expert weights
+    the same way, every other dim is replicated (the weights' FSDP split
+    is gathered).  The weights' gradients are partial sums over the group
+    split.  Groups and experts are independent, so this is exact."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xe.device_mesh
+    x_pl, w_pl, g_pl = [], [], []
+    for pl in xe.placements:
+        if pl == Shard(0):
+            x_pl.append(Shard(0)), w_pl.append(Replicate())
+            g_pl.append(Partial())
+        elif pl == Shard(1):
+            x_pl.append(Shard(1)), w_pl.append(Shard(0))
+            g_pl.append(Shard(0))
+        else:
+            x_pl.append(Replicate()), w_pl.append(Replicate())
+            g_pl.append(Replicate())
+    names = ("wi", "wg", "wo")
+    fn = local_map(lambda x, *ws: _expert_ffn(cfg, dict(zip(names, ws)), x),
+                   out_placements=x_pl,
+                   in_placements=(x_pl,) + (w_pl,) * 3,
+                   in_grad_placements=(x_pl,) + (g_pl,) * 3,
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(xe, *(p[n] for n in names))
 
 
 def _capacity(cfg: ModelConfig, tokens_per_group: int) -> int:
     c = int(tokens_per_group * cfg.top_k * cfg.capacity_factor
             / cfg.n_experts)
     return max(c, cfg.top_k)
+
+
+def _whole_groups(flat, G: int):
+    """A DTensor ``flat`` [G * S, d] whose token split maps onto whole
+    groups: each mesh dim splitting the tokens keeps its split while the
+    split counts divide G, the rest are gathered (DTensor cannot view a
+    split dim into a group dim with fewer entries than shards)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    n, pls = 1, []
+    for i, pl in enumerate(flat.placements):
+        if pl == Shard(0):
+            if G % (n * flat.device_mesh.size(i)) == 0:
+                n *= flat.device_mesh.size(i)
+            else:
+                pl = Replicate()
+        pls.append(pl)
+    return flat.redistribute(flat.device_mesh, pls)
 
 
 def _group(cfg: ModelConfig, x):
@@ -94,6 +179,8 @@ def _group(cfg: ModelConfig, x):
     if pad:
         flat = F.pad(flat, (0, 0, 0, pad))
     G = flat.shape[0] // S
+    if is_dtensor(flat):
+        flat = _whole_groups(flat, G)
     valid = (torch.arange(G * S, device=x.device) < B * T).reshape(G, S)
 
     def ungroup(y):
@@ -102,13 +189,12 @@ def _group(cfg: ModelConfig, x):
     return flat.reshape(G, S, d), valid, S, G, ungroup
 
 
-def moe_apply_einsum(cfg: ModelConfig, p: dict, x):
-    """GShard dense-dispatch MoE.  x: [B, T, d] -> [B, T, d]."""
+def _dispatch_einsum(cfg: ModelConfig, router, xg, valid, C: int):
+    """Route the groups ``xg`` [G, S, d] (``valid`` [G, S]) to their top-k
+    experts' capacity buffers: (xe [G, E, C, d], combine [G, S, E, C])."""
     E, K = cfg.n_experts, cfg.top_k
-    xg, valid, S, G, ungroup = _group(cfg, x)
-    C = _capacity(cfg, S)
-
-    probs = _router(cfg, p, xg)  # [G, S, E]
+    G, S = valid.shape
+    probs = _router(cfg, {"router": router}, xg)  # [G, S, E]
     w, idx = _topk(probs, K)  # [G, S, K]
     vf = valid.to(_F32)
     w = w * vf[..., None]
@@ -127,11 +213,37 @@ def moe_apply_einsum(cfg: ModelConfig, p: dict, x):
     pos_oh = F.one_hot(slot, C + 1)[..., :C].to(_F32)  # [G, S, K, C]
     dispatch = torch.einsum("gske,gskc->gsec", onehot, pos_oh)
     combine = torch.einsum("gske,gskc,gsk->gsec", onehot, pos_oh, w)
+    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(xg.dtype), xg)
+    return xe, combine
 
-    xe = torch.einsum("gsec,gsd->gecd", dispatch.to(x.dtype), xg)
+
+def _combine_einsum(combine, ye):
+    """Expert outputs ``ye`` [G, E, C, d] back to the groups' tokens."""
+    return torch.einsum("gsec,gecd->gsd", combine.to(ye.dtype), ye)
+
+
+def moe_apply_einsum(cfg: ModelConfig, p: dict, x):
+    """GShard dense-dispatch MoE.  x: [B, T, d] -> [B, T, d].
+
+    On a mesh (DTensor ``x``) the routing and dispatch, and the combine,
+    run on each rank's token groups (``local_rows``: the router gathered
+    whole), the expert-major buffers move to the experts' shards and back
+    through :func:`_constrain_ep` (the all-to-all), and the experts run on
+    their shards (:func:`_local_experts`)."""
+    xg, valid, S, G, ungroup = _group(cfg, x)
+    C = _capacity(cfg, S)
+    if is_dtensor(xg):
+        from repro_torch.distributed.sharding import local_rows, rows_like
+
+        xe, combine = local_rows(
+            lambda xl, vl, r: _dispatch_einsum(cfg, r, xl, vl, C),
+            [xg, rows_like(valid, xg)], [p["router"]], 2)
+        xe = _constrain_ep(cfg, xe)  # all-to-all: tokens to their experts
+        ye = _constrain_ep(cfg, _expert_ffn(cfg, p, xe))
+        return ungroup(local_rows(_combine_einsum, [combine, ye], []))
+    xe, combine = _dispatch_einsum(cfg, p["router"], xg, valid, C)
     ye = _expert_ffn(cfg, p, xe)
-    y = torch.einsum("gsec,gecd->gsd", combine.to(x.dtype), ye)
-    return ungroup(y)
+    return ungroup(_combine_einsum(combine, ye))
 
 
 def moe_apply_scatter(cfg: ModelConfig, p: dict, x):
@@ -157,7 +269,8 @@ def moe_apply_scatter(cfg: ModelConfig, p: dict, x):
     rows = torch.arange(G, device=x.device)[:, None].expand(G, S * K)
     buf = torch.zeros((G, E, C + 1, d), dtype=x.dtype, device=x.device)
     buf.index_put_((rows, flat_e, pos_c), xr, accumulate=True)
-    ye = _expert_ffn(cfg, p, buf[:, :, :C])  # [G, E, C, d]
+    xe = _constrain_ep(cfg, buf[:, :, :C])
+    ye = _constrain_ep(cfg, _expert_ffn(cfg, p, xe))  # [G, E, C, d]
     ye = F.pad(ye, (0, 0, 0, 1))
     out = ye[rows, flat_e, pos_c]  # [G, S*K, d]
     out = out * torch.where(keep, w.reshape(G, S * K),

@@ -24,6 +24,24 @@ Entry points:
 Caches are written in place and returned: the attention layers write
 their slots, and the mixers' new ``conv`` and ``ssm`` state is copied into
 the stacked leaves.
+
+Sharded over a mesh (parameters, caches and inputs as DTensors,
+:func:`repro_torch.launch.steps.build_sharded_step`), ``cfg.act_spec`` is
+``(batch_axes, seq_axes, vocab_axis, mesh)`` and :func:`_constrain` /
+:func:`_sp_enter` re-lay the activations out at the reference's anchor
+points; with ``act_spec`` None, or on plain tensors, they return their
+input unchanged.  Where the activations (and the layer's caches) are split
+on the batch alone and the layers' rows are independent (every family but
+MoE, whose token groups span rows), the layers run on each rank's rows
+with plain ops through ``local_map``: a training stage as one
+``local_map`` whose layers each all-gather their weights inside their
+remat region and reduce-scatter the gradients (ZeRO-3, as GSPMD plans
+the FSDP mode; :func:`_local_stage`), a layer with caches as one
+(:func:`_local_layer`); the embedding gather and each loss chunk likewise
+(:func:`repro_torch.distributed.sharding.local_rows`).  The values are
+those of DTensor's op-by-op plan; the host dispatches a handful of DTensor
+ops a stage instead of each of its ops (on one card the op-by-op plan
+doubled the olmo-1b train step's wall).
 """
 from __future__ import annotations
 
@@ -37,8 +55,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (is_dtensor, local_rows,
+                                              rows_like, rows_only,
+                                              to_placements)
+from repro_torch.distributed.trace_analysis import note_loop
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
@@ -72,6 +95,162 @@ def plan_stages(cfg: ModelConfig) -> list[Stage]:
             stages.append(Stage(i, j - i, cfg.attn_window))
             i = j
     return stages
+
+
+# ---------------------------------------------------------------------------
+# activation sharding constraints (the reference's GSPMD anchor points)
+# ---------------------------------------------------------------------------
+def _relayout(x, spec: tuple, mesh):
+    """``x`` redistributed to ``spec`` on ``mesh`` if it is a DTensor."""
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(mesh, to_placements(spec, mesh))
+
+
+@functools.lru_cache(maxsize=16)
+def _unsharded(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, act_spec=None)
+
+
+def _local_layer(cfg, lp, x, positions, window, cache, cache_pos):
+    """:func:`_layer_apply` on each rank's rows (see the module
+    docstring); ``cache`` (the layer's views, split on the batch alone) is
+    written in place through its local shards."""
+    wl, wdef = tree.flatten(lp)
+    cl, cdef = tree.flatten(cache)
+    pos_rows = rows_like(positions, x) if positions.ndim > 1 else None
+    lcfg = _unsharded(cfg)
+
+    def fn(xl, *rest):
+        i = 0
+        pl = positions
+        if pos_rows is not None:
+            pl, i = rest[0], 1
+        c = tree.unflatten(cdef, rest[i:i + len(cl)])
+        w = tree.unflatten(wdef, rest[i + len(cl):])
+        return _layer_apply(lcfg, w, xl, pl, window, c, cache_pos)
+
+    rows = [x] + ([pos_rows] if pos_rows is not None else []) + cl
+    return local_rows(fn, rows, wl)
+
+
+def _gathered(t, placements, mesh):
+    """One layer's slice ``t`` of a stacked leaf's local shard, gathered
+    whole: an all-gather (whose backward reduce-scatters the gradient)
+    over each mesh dim that splits it, on the dim it splits (one less
+    than the stacked leaf's, whose layer axis is never split)."""
+    import torch.distributed._functional_collectives as funcol
+
+    # the name of torch 2.13 (older releases: all_gather_tensor_autograd)
+    gather = getattr(funcol, "all_gather_single_autograd", None) \
+        or funcol.all_gather_tensor_autograd
+    for i, p in enumerate(placements):
+        if p.is_shard():
+            t = gather(t, gather_dim=p.dim - 1, group=(mesh, i))
+    return t
+
+
+def _local_stage(cfg, stacked, x, positions, st: Stage):
+    """A training stage's layers on each rank's rows in one ``local_map``
+    (see the module docstring): the stacked leaves enter as local shards,
+    each layer gathers its slice whole inside its remat region (so the
+    backward gathers it again, as ZeRO-3 does) and reduce-scatters its
+    gradient, and the weights' gradients are partial sums over the row
+    split elsewhere."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    wl, wdef = tree.flatten(stacked)
+    pls = [tuple(w.placements) for w in wl]
+    split = [p == Shard(0) for p in x.placements]
+    grad_pls = tuple([p if p.is_shard() else (Partial() if s_ else Replicate())
+                      for p, s_ in zip(wp, split)] for wp in pls)
+    lcfg = _unsharded(cfg)
+
+    def layer(c, lp, h, pos, window, cache, cache_pos):
+        full = tree.unflatten(wdef, [_gathered(t, pl, mesh) for t, pl in
+                                     zip(tree.leaves(lp), pls)])
+        return _layer_apply(c, full, h, pos, window, cache, cache_pos)
+
+    layer = _remat_wrap(lcfg, layer)
+
+    def fn(xl, *ws):
+        for lp in _unbind(tree.unflatten(wdef, ws), st.length):
+            xl = layer(lcfg, lp, xl, positions, st.window, None, None)
+        return xl
+
+    return local_map(fn, out_placements=list(x.placements),
+                     in_placements=(list(x.placements),)
+                     + tuple(list(p) for p in pls),
+                     in_grad_placements=(list(x.placements),) + grad_pls,
+                     device_mesh=mesh)(x, *wl)
+
+
+def _stage_is_local(cfg, stacked, x) -> bool:
+    """A training stage whose layers run in one ``local_map``: rows-only
+    activations, and every stacked leaf a DTensor split only on mesh dims
+    that also split the rows (its gathers' reduce-scatters then sum the
+    rows' gradient contributions once each)."""
+    from torch.distributed.tensor import Shard
+
+    if not _layer_is_rowwise(cfg, x, None):
+        return False
+    split = [p == Shard(0) for p in x.placements]
+    return all(is_dtensor(w) and w.device_mesh == x.device_mesh and all(
+        p.is_replicate() or (p.is_shard() and p.dim > 0 and s_)
+        for p, s_ in zip(w.placements, split))
+        for w in tree.leaves(stacked))
+
+
+def _layer_is_rowwise(cfg, x, cache) -> bool:
+    return (cfg.act_spec is not None and not cfg.is_moe
+            and not cfg.megatron_sp and rows_only(x)
+            and all(rows_only(c) for c in tree.leaves(cache or {})))
+
+
+def _act_layout(cfg: ModelConfig, kind: str) -> tuple:
+    """The spec ``_constrain`` lays an activation of ``kind`` out by."""
+    b, s, v, mesh = cfg.act_spec
+    if kind == "act":  # [B, T, d]
+        return (b, s, None)
+    if kind in ("loss_h", "logits"):
+        # Loss region: trade sequence parallelism for vocab TP (see the
+        # reference): h to (batch, -, -), the logits to (batch, -, model).
+        if not cfg.loss_vocab_tp:  # baseline: loss follows the act sharding
+            return (b, s, None if kind == "loss_h" else v)
+        v_eff = v
+        if v is None and s == "model":
+            n = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))).get(
+                "model", 1)
+            if n > 1 and cfg.vocab_size % n == 0:
+                v_eff = "model"
+        return (b, None, None) if kind == "loss_h" else (b, None, v_eff)
+    return (b, s)  # [B, T]
+
+
+def _constrain(cfg: ModelConfig, x, kind: str = "act"):
+    """Re-anchor activation sharding at layer boundaries, so that one
+    op's layout choice cannot leave the residual stream replicated.
+    ``cfg.act_spec`` is set by ``build_sharded_step``; None (tests, one
+    device) is a no-op.
+    """
+    if cfg.act_spec is None:
+        return x
+    return _relayout(x, _act_layout(cfg, kind), cfg.act_spec[3])
+
+
+def _sp_enter(cfg, h):
+    """Megatron-SP block entry: all-gather the seq-sharded residual so the
+    block's GEMMs see full sequences and the weights stay sharded.  The
+    residual stream stays seq-sharded between blocks; only the transient
+    block input is gathered."""
+    if cfg.act_spec is None or not cfg.megatron_sp:
+        return h
+    b, s, _, mesh = cfg.act_spec
+    if s is None:
+        return h
+    return _relayout(h, (b, None, None), mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -237,7 +416,7 @@ def _mixer(cfg, p, h, cache):
 
 
 def _layer_apply(cfg, lp, x, positions, window, cache, cache_pos):
-    h = L.apply_norm(cfg, lp["norm1"], x)
+    h = _sp_enter(cfg, L.apply_norm(cfg, lp["norm1"], x))
     cache = cache or {}
     if cfg.has_attention:
         a, _ = L.attention_apply(cfg, lp["attn"], h, positions, window=window,
@@ -251,15 +430,15 @@ def _layer_apply(cfg, lp, x, positions, window, cache, cache_pos):
     else:
         x = x + (s if cfg.has_ssm else a)
     if cfg.is_moe:
-        h2 = L.apply_norm(cfg, lp["norm2"], x)
+        h2 = _sp_enter(cfg, L.apply_norm(cfg, lp["norm2"], x))
         y = MoE.moe_apply(cfg, lp["moe"], h2)
         if cfg.moe_dense_residual:
             y = y + L.mlp_apply(cfg, lp["dense_mlp"], h2)
         x = x + y
     elif cfg.d_ff > 0:
         x = x + L.mlp_apply(cfg, lp["mlp"],
-                            L.apply_norm(cfg, lp["norm2"], x))
-    return x
+                            _sp_enter(cfg, L.apply_norm(cfg, lp["norm2"], x)))
+    return _constrain(cfg, x)
 
 
 def _unbind(tree: dict, n: int) -> list[dict]:
@@ -303,12 +482,19 @@ def _stage_apply(cfg, stacked, x, positions, st: Stage, cache, cache_pos):
     """Run the ``st.length`` stacked layers of one stage in order (the
     reference's scan); the stage's cache, if any, is written in place.
     Without a cache (a training forward) each layer runs under
-    :func:`_remat_wrap`."""
+    :func:`_remat_wrap`: all of them in one ``local_map`` where
+    :func:`_stage_is_local` holds, op by op through DTensor otherwise."""
+    note_loop(f"stage[{st.start}:{st.start + st.length}]/layers", st.length)
     if cache is not None:
         for i in range(st.length):
-            x = _layer_apply(cfg, _index(stacked, i), x, positions,
-                             st.window, _index(cache, i), cache_pos)
+            c = _index(cache, i)
+            apply = (_local_layer if _layer_is_rowwise(cfg, x, c)
+                     else _layer_apply)
+            x = apply(cfg, _index(stacked, i), x, positions, st.window, c,
+                      cache_pos)
         return x, cache
+    if _stage_is_local(cfg, stacked, x):
+        return _local_stage(cfg, stacked, x, positions, st), None
     layer = _remat_wrap(cfg, _layer_apply)
     for lp in _unbind(stacked, st.length):
         x = layer(cfg, lp, x, positions, st.window, None, cache_pos)
@@ -317,8 +503,12 @@ def _stage_apply(cfg, stacked, x, positions, st: Stage, cache, cache_pos):
 
 def _embed(cfg, params, tokens=None, embeds=None):
     if embeds is not None:
-        return embeds.to(cfg.jdtype)
-    return params["embed"][tokens.to(torch.int64)]
+        return _constrain(cfg, embeds.to(cfg.jdtype))
+    if cfg.act_spec is not None and rows_only(tokens):
+        # each rank gathers its rows from the whole table
+        return _constrain(cfg, local_rows(
+            lambda t, e: e[t.to(torch.int64)], [tokens], [params["embed"]]))
+    return _constrain(cfg, params["embed"][tokens.to(torch.int64)])
 
 
 def _head(cfg, params, h):
@@ -342,13 +532,28 @@ def lm_apply(cfg, params, tokens=None, *, embeds=None, positions=None,
 
 
 def lm_logits(cfg, params, hidden):
-    return _head(cfg, params, hidden)
+    out = _head(cfg, params, hidden)
+    if cfg.act_spec is not None and out.ndim == 2:
+        b, _, v, mesh = cfg.act_spec
+        out = _relayout(out, (b, v), mesh)
+    return out
 
 
 def _chunk_loss(cfg, params, h, lab):
     """Summed cross-entropy of one ``[B, C]`` chunk and its count of
-    labels >= 0 (label -1 is padding)."""
+    labels >= 0 (label -1 is padding).  On a mesh whose loss region is
+    split on the batch alone, each rank sums its own rows (the sums are
+    partial over the split)."""
+    if cfg.act_spec is not None and _loss_is_rowwise(cfg, h, lab):
+        w = params["embed"] if cfg.tie_embeddings else params["head"]
+        key = "embed" if cfg.tie_embeddings else "head"
+        lcfg = _unsharded(cfg)
+        return local_rows(
+            lambda hl, ll, wl: _chunk_loss(lcfg, {key: wl}, hl, ll),
+            [h, lab], [w], 2, scalar_out=True)
+    h = _constrain(cfg, h, "loss_h")
     logits = _head(cfg, params, h).to(getattr(torch, cfg.loss_dtype))
+    logits = _constrain(cfg, logits, "logits")
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.take_along_dim(
         logits, torch.clamp_min(lab, 0)[..., None].to(torch.int64),
@@ -356,6 +561,18 @@ def _chunk_loss(cfg, params, h, lab):
     valid = lab >= 0
     ce = torch.where(valid, logz - gold, 0.0)
     return ce.sum(dtype=torch.float32), valid.sum(dtype=torch.int32)
+
+
+def _loss_is_rowwise(cfg, h, lab) -> bool:
+    """The loss region's layouts (``_constrain``'s "loss_h" and "logits")
+    split nothing but the batch, and h and the labels are so split."""
+    from torch.distributed.tensor import Shard
+
+    mesh = cfg.act_spec[3]
+    return (rows_only(h) and rows_only(lab) and all(
+        p.is_replicate() or p == Shard(0)
+        for kind in ("loss_h", "logits")
+        for p in to_placements(_act_layout(cfg, kind), mesh)))
 
 
 def lm_loss(cfg, params, tokens, labels, *, embeds=None,
@@ -382,17 +599,19 @@ def lm_loss(cfg, params, tokens, labels, *, embeds=None,
 
 
 def prefill(cfg, params, tokens=None, *, embeds=None,
-            max_len: int | None = None):
+            max_len: int | None = None, caches=None):
     """Run the prompt, return (last-position logits [B,V], caches).
 
     ``max_len`` sets the KV-cache capacity (prompt + decode headroom); the
-    caches live on the parameters' device."""
+    caches are zeros on the parameters' device, or ``caches`` (zeros of
+    that capacity, e.g. laid out on a mesh) when given."""
     if tokens is not None:
         batch, seq_len = tokens.shape
     else:
         batch, seq_len = embeds.shape[0], embeds.shape[1]
-    caches = init_caches(cfg, batch, max_len or seq_len,
-                         device=params["embed"].device)
+    if caches is None:
+        caches = init_caches(cfg, batch, max_len or seq_len,
+                             device=params["embed"].device)
     hidden, caches = lm_apply(cfg, params, tokens, embeds=embeds,
                               caches=caches)
     return lm_logits(cfg, params, hidden[:, -1]), caches

@@ -68,13 +68,39 @@ def _pow(base: float, exponent: torch.Tensor) -> torch.Tensor:
                                 device=exponent.device), exponent)
 
 
-def global_norm(leaves) -> torch.Tensor:
-    """sqrt of the float32 sum of squares over ``leaves``, summed leaf by
-    leaf in order, as the reference's Python ``sum``."""
+def _sum_squares(leaves):
     total = 0
     for g in leaves:
         total = total + torch.sum(torch.square(g.to(_F32)))
-    return torch.sqrt(torch.as_tensor(total, dtype=_F32))
+    return total
+
+
+def global_norm(leaves) -> torch.Tensor:
+    """sqrt of the float32 sum of squares over ``leaves``, summed leaf by
+    leaf in order, as the reference's Python ``sum``.  DTensor leaves are
+    summed on each rank's shards, one ``local_map`` for each layout (in
+    the order the layouts first appear), the per-layout sums partial over
+    the mesh dims that split them."""
+    leaves = list(leaves)
+    if leaves and all(_is_dtensor(g) for g in leaves):
+        return torch.sqrt(_local_sum_squares(leaves))
+    return torch.sqrt(torch.as_tensor(_sum_squares(leaves), dtype=_F32))
+
+
+def _local_sum_squares(leaves):
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    groups: dict = {}
+    for g in leaves:
+        groups.setdefault((g.device_mesh, tuple(g.placements)), []).append(g)
+    total = 0
+    for (mesh, pls), gs in groups.items():
+        out = [Partial() if p.is_shard() else Replicate() for p in pls]
+        total = total + local_map(
+            lambda *xs: _sum_squares(xs), out_placements=out,
+            in_placements=(pls,) * len(gs), device_mesh=mesh)(*gs)
+    return total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,20 +133,32 @@ class AdamW:
         g_leaves, treedef = tree.flatten(grads)
         p_leaves = tree.leaves(params)
 
+        cscale = None
         if self.grad_clip > 0:
             gnorm = global_norm(g_leaves)
             clip = torch.full((), self.grad_clip, dtype=_F32,
                               device=gnorm.device)
             cscale = torch.clamp_max(clip / torch.clamp_min(gnorm, 1e-12),
                                      1.0)
-            g_leaves = [g * cscale.to(g.dtype) for g in g_leaves]
 
         cf = count.to(_F32)
         bc1 = 1.0 - _pow(self.b1, cf)
         bc2 = 1.0 - _pow(self.b2, cf)
 
+        leaves = (g_leaves, list(state["m"]), list(state["v"]), p_leaves)
+        moments = (self._local_moments if _same_layout(*leaves)
+                   else self._moments)
+        updates, new_m, new_v = moments((cscale, lr, bc1, bc2), *leaves)
+        return (tree.unflatten(treedef, updates),
+                {"m": tuple(new_m), "v": tuple(new_v), "count": count})
+
+    def _moments(self, scalars, gs, ms, vs, ps):
+        """Each leaf's clipped gradient, new moments and update."""
+        cscale, lr, bc1, bc2 = scalars
         updates, new_m, new_v = [], [], []
-        for g, m, v, p in zip(g_leaves, state["m"], state["v"], p_leaves):
+        for g, m, v, p in zip(gs, ms, vs, ps):
+            if cscale is not None:
+                g = g * cscale.to(g.dtype)
             g = g.to(_F32)
             qm, qv = isinstance(m, MomentState), isinstance(v, MomentState)
             mf = _q8_unpack(m, g.shape) if qm else m
@@ -132,9 +170,45 @@ class AdamW:
             updates.append((-lr * step).to(p.dtype))
             new_m.append(_q8_pack(mf) if qm else mf)
             new_v.append(_q8_pack(vf) if qv else vf)
+        return updates, new_m, new_v
 
-        return (tree.unflatten(treedef, updates),
-                {"m": tuple(new_m), "v": tuple(new_v), "count": count})
+    def _local_moments(self, scalars, gs, ms, vs, ps):
+        """:meth:`_moments` of DTensor leaves (each leaf's gradient, moments
+        and parameter laid out alike) through one ``local_map``: the
+        update is elementwise, so each rank updates its own shards; the
+        clip scale and the schedule's scalars are whole on every rank."""
+        from torch.distributed.tensor.experimental import local_map
+
+        n = len(gs)
+        flat = list(scalars) + gs + ms + vs + ps
+
+        def fn(*xs):
+            rest = xs[4:]
+            u, m, v = self._moments(xs[:4], rest[:n], rest[n:2 * n],
+                                    rest[2 * n:3 * n], rest[3 * n:])
+            return tuple(u) + tuple(m) + tuple(v)
+
+        out = local_map(
+            fn, out_placements=tuple(x.placements for x in ps + ms + vs),
+            in_placements=tuple(x.placements if _is_dtensor(x) else None
+                                for x in flat),
+            device_mesh=ps[0].device_mesh)(*flat)
+        return list(out[:n]), list(out[n:2 * n]), list(out[2 * n:])
+
+
+def _is_dtensor(x) -> bool:
+    from repro_torch.distributed.sharding import is_dtensor
+
+    return is_dtensor(x)
+
+
+def _same_layout(gs, ms, vs, ps) -> bool:
+    """DTensor leaves, float moments, each leaf's four laid out alike."""
+    return bool(ps) and all(
+        _is_dtensor(p) and not isinstance(m, MomentState)
+        and all(_is_dtensor(x) and x.placements == p.placements
+                and x.device_mesh == p.device_mesh for x in (g, m, v))
+        for g, m, v, p in zip(gs, ms, vs, ps))
 
 
 def adamw(**kw) -> AdamW:

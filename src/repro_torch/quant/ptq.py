@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core.quantize import (QuantParams, choose_qparams, quantize,
                                        quantize_per_channel)
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels import bitserial_matmul as _bsm
 from repro_torch.kernels import ops as K
 
@@ -131,8 +132,14 @@ def quantized_matmul(x: torch.Tensor, wq: dict,
 
     With ``x_qp`` the activation is quantized to int8 first and the GEMM
     runs W8A8 through the fused kernel; without it the weight is
-    dequantized on the fly (weight-only quantization).
+    dequantized on the fly (weight-only quantization).  A DTensor ``x``
+    (a step sharded over a mesh) runs through ``local_map``: each rank
+    multiplies its own rows by the whole weight (the kernel on its local
+    shard), and the product keeps x's row split; rows are independent, so
+    this is exact.
     """
+    if is_dtensor(x):
+        return _local_rows(x, wq, x_qp)
     if x_qp is None:
         w = wq["q"].to(x.dtype) * wq["scale"].to(x.dtype)
         return x @ w
@@ -144,6 +151,31 @@ def quantized_matmul(x: torch.Tensor, wq: dict,
     # x @ W = s*sw*(q @ qw) - s*zp*sw*colsum(qw)
     y = y + _zp_correction(wq, x_qp.scale, zp)
     return y.reshape(*lead, -1).to(x.dtype)
+
+
+
+def _local_rows(x, wq: dict, x_qp: QuantParams | None):
+    """:func:`quantized_matmul` of a DTensor ``x`` [..., K] on each rank's
+    rows: a mesh dim splitting a leading dim keeps it, every other mesh
+    dim (a split of K) is gathered; the weight and its scale are whole on
+    every rank."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    x_pl = [p if p.is_shard() and p.dim < x.ndim - 1 else Replicate()
+            for p in x.placements]
+    w_pl = [Replicate()] * len(x_pl)
+    names = sorted(wq)
+    ws = [wq[n] for n in names]
+
+    def local(xl, *wl):
+        return quantized_matmul(xl, dict(zip(names, wl)), x_qp)
+
+    return local_map(local, out_placements=x_pl,
+                     in_placements=(x_pl,) + tuple(
+                         w_pl if torch.is_tensor(w) else None for w in ws),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, *ws)
 
 
 def _to_int8(q: torch.Tensor, x_qp: QuantParams):

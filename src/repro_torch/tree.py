@@ -10,7 +10,8 @@ parameter.  :func:`unflatten` rebuilds dicts in their original key order.
 """
 from __future__ import annotations
 
-__all__ = ["TreeDef", "flatten", "leaves", "unflatten", "map", "paths"]
+__all__ = ["TreeDef", "flatten", "leaves", "unflatten", "map", "paths",
+           "map_with_path"]
 
 _LEAF = object()  # a leaf's place in a TreeDef's skeleton
 
@@ -101,6 +102,33 @@ def paths(tree) -> list[str]:
             yield prefix
 
     return list(walk(tree, ""))
+
+
+def map_with_path(fn, tree, *rest, is_leaf=None):
+    """``fn(path, leaf, *rest_leaves)`` over the leaves in leaf order, with
+    ``path`` '/'-joined without a leading slash (``stages/0/attn/wq``), as
+    the reference's ``jax.tree_util.tree_map_with_path`` names them."""
+    ps: list[str] = []
+
+    def walk(node, prefix):
+        if is_leaf is not None and is_leaf(node):
+            ps.append(prefix)
+        elif node is None:
+            return
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}/{k}" if prefix else str(k))
+        elif isinstance(node, (list, tuple)):
+            for i, c in enumerate(node):
+                walk(c, f"{prefix}/{i}" if prefix else str(i))
+        else:
+            ps.append(prefix)
+
+    walk(tree, "")
+    ls, treedef = flatten(tree, is_leaf)
+    others = [leaves(r, is_leaf) for r in rest]
+    return unflatten(treedef, [fn(p, *xs) for p, *xs in
+                               zip(ps, ls, *others)])
 
 
 def _describe(node) -> str:
