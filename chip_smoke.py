@@ -68,6 +68,25 @@ results go to lines before the last; each phase prints its wall):
    request completed, SLO and dispatch identities held, every routed
    logit row byte-identical to phase 4's, dispatches and kernel launches
    printed per engine;
+7b. ``bitserial-ops``: the §III ops (add, sub, multiply, MAC into a 24-bit
+   accumulator, ReLU of the 9-bit difference, max, selective copy) over the
+   35 MB LLC's 1,032,192 compute bit lines, flat and row-aligned as 3584
+   rows of K = 288, on a dense 8-bit operand set and on one whose
+   multiplier has 90% of its 32-lane words zero and a dead top plane: words
+   bit-equal to the same calls on CPU tensors and unchanged with
+   ``ZERO_SKIP`` off, values equal to integer arithmetic, cycles equal to
+   the closed forms (9 and 102 at n = 8), ``SKIP_STATS`` equal to the CPU
+   run's, the sparse multiply and MAC eliding words and planes; then
+   ``bitserial_dot`` over 3584 rows of K = 288 and ``nc_dot`` at the FC's
+   1001 rows of K = 2048 at 8 and 4 bits through ``walk`` and ``gemm``
+   (values equal to x . w, cycles equal; gemm launches the 8-bit kernel,
+   then the W4A4 one, counted into the kernels line); then phase 4's first
+   image through a batch-1 full-width ``nc_forward(engine="walk")`` beside
+   ``engine="gemm"``: logits byte-identical, reports equal, every layer's
+   ``ConvStats`` equal but ``engine_words_*`` (nonzero on walk, 0 on gemm),
+   no kernel launched by the walk, and ``Conv2d_1a_3x3`` and the FC run
+   again on CPU tensors giving the card's output, ``ConvStats`` and
+   ``SKIP_STATS``; the walls, the words elided and the peak memory printed;
 8. full-width Qwen2-7B (28 layers, d_model 3584, 28 query heads over 4 KV
    heads, bf16, seeded random weights) served by ``ServingEngine(
    max_batch=4, max_len=2112)``: 4 requests with prompts of 37, 512, 1000
@@ -184,8 +203,10 @@ results go to lines before the last; each phase prints its wall):
     from its build report;
 13. one JSON line listing the four kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs
-    for ``bitserial_matmul``, the seven served LMs, the two int8-cache
-    runs and the sharded prefills for ``flash_attention``), then the card
+    and the 8-bit ``nc_dot`` for ``bitserial_matmul``, the 4-bit path and
+    the 4-bit ``nc_dot`` for ``bitserial_matmul_a4``, the seven served LMs,
+    the two int8-cache runs and the sharded prefills for
+    ``flash_attention``), then the card
     line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -932,6 +953,309 @@ def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
                                  f"from phase 4's")
     log("[fleet] every routed logit row byte-identical to phase 4's; "
         "hits + misses == completed + failed; dispatches == batches")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# bitserial-ops: the §III arithmetic across the LLC's compute bit lines, the
+# dots, and one full-width forward on the walk backend
+# ---------------------------------------------------------------------------
+OPS_K = 288  # Conv2d_2b's reduce width: 3584 rows of it fill the 35 MB LLC
+FC_DOT = (1001, 2048)  # the FC's rows and reduce width
+OPS_SPARSE = 0.9  # share of the sparse multiplier's 32-lane words zeroed
+# closed forms at n = 8 (§III): add/sub n + 1, multiply n^2 + 5n - 2, MAC
+# with a 24-bit accumulator mul + add(24), ReLU of the 9-bit difference
+# n + 1, max add + n + 1, selective copy n + 1; the dot adds the log tree
+# over 288 lanes, widening 24 -> 33 bits (move w + add w + 1 a step)
+OPS_CYCLES = {"add": 9, "sub": 9, "multiply": 102, "mac": 102 + 25,
+              "relu": 10, "max": 9 + 9, "selective_copy": 9}
+DOT_CYCLES = 102 + 25 + sum(2 * w + 1 for w in range(24, 33))
+
+
+def _ops_operands(lanes: int, sparse: bool) -> dict:
+    """Seeded 8-bit operands over ``lanes`` lanes (CPU int64): ``a`` and
+    ``b``, a 24-bit accumulator and a copy mask; the sparse set zeroes
+    OPS_SPARSE of ``b``'s 32-lane words and its top plane, so that the
+    multiply elides words and planes."""
+    g = torch.Generator().manual_seed(20 + int(sparse))
+    ops = {"a": torch.randint(0, 256, (lanes,), generator=g),
+           "b": torch.randint(0, 256, (lanes,), generator=g),
+           "acc": torch.randint(0, 1 << 16, (lanes,), generator=g),
+           "mask": torch.randint(0, 2, (lanes,), generator=g)}
+    if sparse:
+        dead = torch.rand(-(-lanes // 32), generator=g) < OPS_SPARSE
+        ops["b"][dead.repeat_interleave(32)[:lanes]] = 0
+        ops["b"] &= 0x7F
+    return ops
+
+
+def _ops_run(bitserial, ops, layout: str, dev) -> dict:
+    """Every §III op once on ``dev``: {op: (PackedPlanes, cycles,
+    SKIP_STATS snapshot)}; ``layout`` "flat" packs ``lanes`` flat, "rows"
+    row-aligned as [lanes / OPS_K, OPS_K]."""
+    shape = (-1, OPS_K) if layout == "rows" else (-1,)
+
+    def pack(x, n):
+        return bitserial.pack_values(x.to(dev).reshape(shape), n,
+                                     row_align=layout == "rows")
+
+    a, b, acc = pack(ops["a"], 8), pack(ops["b"], 8), pack(ops["acc"], 24)
+    mask = ops["mask"].to(dev).reshape(shape)
+    calls = {"add": lambda: bitserial.bitserial_add(a, b),
+             "sub": lambda: bitserial.bitserial_sub(a, b),
+             "multiply": lambda: bitserial.bitserial_multiply(a, b),
+             "mac": lambda: bitserial.bitserial_mac(acc, a, b),
+             "max": lambda: bitserial.bitserial_max(a, b),
+             "selective_copy": lambda: bitserial.selective_copy(a, b, mask)}
+    out = {}
+    for name, call in calls.items():
+        bitserial.SKIP_STATS.reset()
+        pp, cycles = call()
+        out[name] = (pp, cycles, bitserial.SKIP_STATS.snapshot())
+    bitserial.SKIP_STATS.reset()
+    pp, cycles = bitserial.bitserial_relu(out["sub"][0])
+    out["relu"] = (pp, cycles, bitserial.SKIP_STATS.snapshot())
+    return out
+
+
+def _ops_expected(ops) -> dict:
+    a, b, acc, mask = ops["a"], ops["b"], ops["acc"], ops["mask"]
+    return {"add": a + b, "sub": (a - b) & 0x1FF, "multiply": a * b,
+            "mac": (acc + a * b) & 0xFFFFFF, "relu": torch.clamp_min(a - b, 0),
+            "max": torch.maximum(a, b),
+            "selective_copy": torch.where(mask.bool(), b, a)}
+
+
+def phase_ops_full_width(bitserial, lanes, dev):
+    """The §III ops over ``lanes`` lanes (the LLC's compute bit lines), flat
+    and row-aligned, on a dense and a sparse operand set: words bit-equal
+    to the same calls on CPU tensors, values equal to integer arithmetic,
+    cycles equal to the closed forms, ``SKIP_STATS`` equal to the CPU
+    run's, and ``ZERO_SKIP`` off giving the same words; on the sparse set
+    the multiply and the MAC must elide words and planes."""
+    for sparse in (False, True):
+        ops = _ops_operands(lanes, sparse)
+        want = _ops_expected(ops)
+        for layout in ("flat", "rows"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = _ops_run(bitserial, ops, layout, dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            host = _ops_run(bitserial, ops, layout, "cpu")
+            bitserial.ZERO_SKIP = False
+            try:
+                plain = _ops_run(bitserial, ops, layout, dev)
+            finally:
+                bitserial.ZERO_SKIP = True
+            tag = f"{'sparse' if sparse else 'dense'} {layout}"
+            for name, (pp, cycles, snap) in card.items():
+                words = pp.words.cpu()
+                if pp.words.device.type != torch.device(dev).type:
+                    raise AssertionError(f"{name} {tag}: left the device")
+                if not torch.equal(words, host[name][0].words):
+                    raise AssertionError(f"{name} {tag}: words differ from "
+                                         f"the CPU run's")
+                if not torch.equal(words, plain[name][0].words.cpu()):
+                    raise AssertionError(f"{name} {tag}: ZERO_SKIP off "
+                                         f"changes the words")
+                vals = bitserial.unpack_values(pp).cpu().reshape(-1)
+                if not torch.equal(vals, want[name]):
+                    raise AssertionError(f"{name} {tag}: values differ "
+                                         f"from integer arithmetic")
+                if cycles != OPS_CYCLES[name] or host[name][1] != cycles:
+                    raise AssertionError(f"{name} {tag}: {cycles} cycles, "
+                                         f"closed form {OPS_CYCLES[name]}")
+                if snap != host[name][2]:
+                    raise AssertionError(f"{name} {tag}: SKIP_STATS {snap} "
+                                         f"!= CPU {host[name][2]}")
+            for name in ("multiply", "mac"):
+                snap = card[name][2]
+                if sparse and not (snap["words_skipped"]
+                                   and snap["planes_skipped"]):
+                    raise AssertionError(f"{name} {tag}: no elision {snap}")
+            snap = card["multiply"][2]
+            log(f"[bitserial-ops] {lanes} lanes {tag}: 7 ops bit-equal to "
+                f"the CPU and to integer arithmetic, cycles "
+                f"{ {k: v[1] for k, v in card.items()} }; multiply words "
+                f"{snap['words_skipped']}/{snap['words_total']} elided, "
+                f"planes {snap['planes_skipped']}/{snap['planes_total']}; "
+                f"card wall {wall:.3f} s")
+
+
+def phase_dots(bitserial, nc_layers, backends, bsm, dev, lanes):
+    """``bitserial_dot`` at OPS_K over ``lanes / OPS_K`` rows and ``nc_dot``
+    at FC_DOT at 8 and 4 bits through ``walk`` and ``gemm``: values equal
+    to integer arithmetic and to each other, cycles equal; the gemm runs
+    launch the 8-bit kernel, then the W4A4 kernel.  Returns those launches
+    as (8-bit, W4A4)."""
+    g = torch.Generator().manual_seed(21)
+    rows = lanes // OPS_K
+    x = torch.randint(0, 256, (rows, OPS_K), generator=g)
+    w = torch.randint(0, 256, (rows, OPS_K), generator=g)
+    bitserial.SKIP_STATS.reset()
+    vals, cycles = bitserial.bitserial_dot(x.to(dev), w.to(dev))
+    snap = bitserial.SKIP_STATS.snapshot()
+    bitserial.SKIP_STATS.reset()
+    cpu_vals, cpu_cycles = bitserial.bitserial_dot(x, w)
+    if not torch.equal(vals.cpu(), cpu_vals) or snap != \
+            bitserial.SKIP_STATS.snapshot():
+        raise AssertionError("bitserial_dot: card != CPU")
+    if not torch.equal(cpu_vals, (x * w).sum(dim=1)):
+        raise AssertionError("bitserial_dot: values differ from x . w")
+    if cycles != DOT_CYCLES or cpu_cycles != cycles:
+        raise AssertionError(f"bitserial_dot: {cycles} cycles, closed form "
+                             f"{DOT_CYCLES}")
+    log(f"[bitserial-ops] bitserial_dot {rows} rows x K {OPS_K}: equal to "
+        f"x . w and to the CPU, {cycles} cycles")
+    launches = []
+    M, K = FC_DOT
+    for n_bits in (8, 4):
+        x = torch.randint(0, 1 << n_bits, (M, K), generator=g)
+        w = torch.randint(0, 1 << n_bits, (M, K), generator=g)
+        truth = (x * w).sum(dim=1)
+        got = {}
+        for engine in ("walk", "gemm"):
+            backends.dispatch_stats_clear()
+            bsm.bitserial_matmul.launches = 0
+            bsm.bitserial_matmul_a4.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v, c = nc_layers.nc_dot(x.to(dev), w.to(dev), n_bits=n_bits,
+                                    engine=engine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k8 = bsm.bitserial_matmul.launches
+            k4 = bsm.bitserial_matmul_a4.launches
+            d = backends.dispatch_stats()[engine]
+            got[engine] = c
+            if not torch.equal(v.cpu(), truth):
+                raise AssertionError(f"nc_dot {n_bits}-bit {engine}: values "
+                                     f"differ from x . w")
+            if d != {"native": 1, "fallback": 0}:
+                raise AssertionError(f"nc_dot {engine} dispatch {d}")
+            log(f"[bitserial-ops] nc_dot {M} x K {K} at {n_bits} bits, "
+                f"{engine}: {c} cycles, {wall * 1e3:.2f} ms, launches "
+                f"8-bit {k8}, W4A4 {k4}")
+            if engine == "gemm":
+                want = (k8 > 0 and k4 == 0) if n_bits == 8 else (
+                    k4 > 0 and k8 == 0)
+                if not want:
+                    raise AssertionError(f"nc_dot {n_bits}-bit gemm "
+                                         f"launched 8-bit {k8}, W4A4 {k4}")
+                launches.append(k8 if n_bits == 8 else k4)
+            elif k8 or k4:
+                raise AssertionError("nc_dot walk launched a kernel")
+        if got["walk"] != got["gemm"]:
+            raise AssertionError(f"nc_dot cycles {got}")
+    return tuple(launches)
+
+
+LAYERS_ON_CPU = ("Conv2d_1a_3x3", "FullyConnected")
+
+
+def phase_walk_forward(inception, nc_layers, bitserial, backends, bsm,
+                       params, image, dev, cfg):
+    """One batch-1 ``nc_forward`` of ``image`` on ``walk`` (ZERO_SKIP on)
+    beside the same on ``gemm``: logits byte-identical, reports equal, every
+    layer's ``ConvStats`` equal but for ``engine_words_*``, which are
+    nonzero on walk and 0 on gemm; the layers LAYERS_ON_CPU run again on
+    CPU tensors give the card's ``ConvStats`` and ``SKIP_STATS`` field for
+    field.  Returns the walk's wall."""
+    real = nc_layers.nc_conv2d
+    seen = []
+
+    def capture(x, w, x_qp, w_qp, *a, **k):
+        name = k["layer_spec"].name
+        before = bitserial.SKIP_STATS.snapshot()
+        out = real(x, w, x_qp, w_qp, *a, **k)
+        after = bitserial.SKIP_STATS.snapshot()
+        delta = {f: after[f] - before[f] for f in after}
+        keep = ((x.clone(), w.clone(), x_qp, w_qp, a, k, out)
+                if name in LAYERS_ON_CPU else None)
+        seen.append((name, out[2], delta, keep))
+        return out
+
+    nc_layers.nc_conv2d = capture
+    runs = {}
+    try:
+        for engine in ("gemm", "walk"):
+            seen.clear()
+            bitserial.SKIP_STATS.reset()
+            backends.dispatch_stats_clear()
+            bsm.bitserial_matmul.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, report = inception.nc_forward(params, image, config=cfg,
+                                                  engine=engine, device=dev)
+            torch.cuda.synchronize()
+            runs[engine] = dict(
+                logits=logits, report=report, seen=list(seen),
+                wall=time.perf_counter() - t0,
+                peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=bsm.bitserial_matmul.launches,
+                dispatch=backends.dispatch_stats()[engine])
+    finally:
+        nc_layers.nc_conv2d = real
+    gemm, walk = runs["gemm"], runs["walk"]
+    if not bits_equal(walk["logits"], gemm["logits"]):
+        raise AssertionError("walk logits differ from gemm's")
+    if walk["report"] != gemm["report"]:
+        raise AssertionError("walk layer reports differ from gemm's")
+    if (walk["launches"] or walk["dispatch"]["fallback"]
+            or gemm["launches"] == 0):
+        raise AssertionError(f"walk launched {walk['launches']} kernels, "
+                             f"gemm {gemm['launches']}")
+    words = ("engine_words_total", "engine_words_skipped")
+    for (name, st_w, _, _), (name_g, st_g, _, _) in zip(walk["seen"],
+                                                        gemm["seen"]):
+        dw, dg = dataclasses.asdict(st_w), dataclasses.asdict(st_g)
+        if name != name_g or any(dw[f] != dg[f] for f in dw
+                                 if f not in words):
+            raise AssertionError(f"{name}: walk ConvStats differ from gemm's")
+        if st_w.engine_words_total == 0 or any(dg[f] for f in words):
+            raise AssertionError(f"{name}: engine words walk "
+                                 f"{st_w.engine_words_total}, gemm "
+                                 f"{[dg[f] for f in words]}")
+    total = sum(st.engine_words_total for _, st, _, _ in walk["seen"])
+    skipped = sum(st.engine_words_skipped for _, st, _, _ in walk["seen"])
+    for name, st, delta, (x, w, x_qp, w_qp, a, k, out) in (
+            r for r in walk["seen"] if r[3] is not None):
+        bitserial.SKIP_STATS.reset()
+        res = nc_layers.nc_conv2d(x.cpu(), w.cpu(), x_qp, w_qp, *a, **k)
+        if not torch.equal(res[0], out[0].cpu()) or res[1] != out[1]:
+            raise AssertionError(f"{name}: CPU output differs from the card's")
+        if dataclasses.asdict(res[2]) != dataclasses.asdict(st):
+            raise AssertionError(f"{name}: CPU ConvStats differ from the "
+                                 f"card's")
+        if bitserial.SKIP_STATS.snapshot() != delta:
+            raise AssertionError(f"{name}: CPU SKIP_STATS differ from the "
+                                 f"card's")
+        log(f"[bitserial-ops] {name} on CPU tensors: output, ConvStats "
+            f"({st.engine_words_total} words, {st.engine_words_skipped} "
+            f"elided) and SKIP_STATS equal to the card's")
+    log(f"[bitserial-ops] batch-1 full-width nc_forward: walk "
+        f"{walk['wall']:.2f} s (peak {walk['peak']:.2f} GiB), gemm "
+        f"{gemm['wall']:.2f} s (peak {gemm['peak']:.2f} GiB); logits "
+        f"byte-identical, {len(walk['report'].layers)} layer reports equal; "
+        f"walk multiplier words {total}, elided {skipped} "
+        f"({skipped / total:.4f}); walk dispatches {walk['dispatch']}")
+    return walk["wall"]
+
+
+def phase_bitserial_ops(inception, nc_layers, bitserial, backends, geometry,
+                        bsm, params, image, dev, cfg, lanes=None):
+    """The ``bitserial-ops`` phase: the §III ops over the LLC's compute bit
+    lines (``geometry.XEON_E5_35MB.compute_slots`` unless ``lanes``), the
+    dots, and the walk forward.  Returns the gemm nc_dot launches of the
+    8-bit and the W4A4 kernel."""
+    lanes = lanes or geometry.XEON_E5_35MB.compute_slots
+    bitserial.ZERO_SKIP = True
+    phase_ops_full_width(bitserial, lanes, dev)
+    launches = phase_dots(bitserial, nc_layers, backends, bsm, dev, lanes)
+    phase_walk_forward(inception, nc_layers, bitserial, backends, bsm,
+                       params, image, dev, cfg)
     return launches
 
 
@@ -3347,9 +3671,14 @@ def main() -> int:
     launches_fleet = timed("fleet", phase_fleet, serve, orchestrator,
                            cache_geometry, bsm, params, images, served, dev,
                            cfg)
+    dot8, dot4 = timed("bitserial-ops", phase_bitserial_ops, inception,
+                       nc_layers, bitserial, backends, cache_geometry, bsm,
+                       params, images[0], dev, cfg)
     log(f"[serve] bitserial_matmul launches by path: serve {launches}, "
-        f"stream-chunk {launches_chunk}, fleet {launches_fleet}")
-    launches += launches_chunk + launches_fleet
+        f"stream-chunk {launches_chunk}, fleet {launches_fleet}, nc_dot "
+        f"{dot8}; bitserial_matmul_a4: 4-bit {launches_a4}, nc_dot {dot4}")
+    launches += launches_chunk + launches_fleet + dot8
+    launches_a4 += dot4
     del params, wpack, served, x
     lm_cfg = get_config(LM_ARCH)
     lm_params = timed("lm-init", lambda: transformer.init_lm(

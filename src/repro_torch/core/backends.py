@@ -18,7 +18,9 @@ Registered backends
 ``walk``
     The exact bit-serial walk (``bitserial._dot_words_impl``), the
     counterpart of the reference's ``host``.  Any plane width, accumulator
-    width and row layout, on either device.
+    width and row layout, on either device.  Its multiply elides
+    zero-operand words and dead planes (``bitserial.ZERO_SKIP``) and counts
+    them in ``bitserial.SKIP_STATS``.
 ``gemm``
     The counterpart of the reference's ``pallas-interpret`` adapter: decode
     both row-aligned word grids to integer row matrices on the tensors'
@@ -27,9 +29,13 @@ Registered backends
     result back into the broadcast grid.  When both operands fit 4 planes
     and ``K >= 2`` the activations are nibble-packed and run through the
     W4A4 kernel, as the reference's adapter routes them; otherwise the
-    8-bit kernel.  Rows sharing words (``K <= 16``) are decoded natively.
-    Delegated to ``walk``: more than 8 planes, an accumulator narrower than
-    the product, a possible int32 overflow, and grids that do not separate.
+    8-bit kernel.  Rows sharing words (``K <= 16``) are decoded natively,
+    and so are paired rows (``nc_dot``: both grids equal, row ``i`` dotted
+    with row ``i``), as the diagonal of block products.  Delegated to
+    ``walk``: more than 8 planes, an accumulator narrower than the product,
+    a possible int32 overflow, and grids that neither separate nor pair.
+    It performs no zero-operand elision and counts nothing in
+    ``bitserial.SKIP_STATS`` on its native path.
 """
 from __future__ import annotations
 
@@ -49,6 +55,7 @@ __all__ = [
     "registered_backends",
     "get_backend",
     "env_backend",
+    "default_backend",
     "resolve_backend",
     "dispatch_stats",
     "dispatch_stats_clear",
@@ -106,6 +113,11 @@ def env_backend() -> str | None:
     return get_backend(name, source=f"{ENV_VAR} environment variable").name
 
 
+def default_backend() -> str:
+    """``NC_TORCH_BACKEND`` when set (validated), else ``gemm``."""
+    return env_backend() or DEFAULT
+
+
 def resolve_backend(explicit: str | None = None,
                     plan_backend: str | None = None) -> str:
     """Explicit ``engine=`` > plan's ``backend`` > ``NC_TORCH_BACKEND`` >
@@ -115,7 +127,7 @@ def resolve_backend(explicit: str | None = None,
         return get_backend(explicit).name
     if plan_backend is not None:
         return get_backend(plan_backend, source="plan backend").name
-    return env_backend() or DEFAULT
+    return default_backend()
 
 
 def dispatch_stats() -> dict[str, dict[str, int]]:
@@ -191,18 +203,40 @@ def _gemm_fallback_reason(xw, ww, *, K: int, acc_bits: int) -> str | None:
     return None
 
 
-def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
-    """Decode the two row-aligned word grids to integer row matrices, run the
-    bit-serial GEMM and scatter the exact int32 result into the broadcast
-    grid (each grid axis is owned by at most one operand)."""
+PAIR_BLOCK = 1024  # rows of one diagonal block of a paired-row product
+
+
+def _exact_gemm(X: torch.Tensor, W: torch.Tensor, nx: int,
+                nw: int) -> torch.Tensor:
+    """``X @ W.T`` exact int32 through the bit-serial kernel: the W4A4
+    kernel on nibble-packed rows when both operands fit 4 planes and
+    ``K >= 2``, else the 8-bit kernel."""
     from repro_torch.kernels import bitserial_matmul as _bsm
     from repro_torch.kernels import ops
 
+    K = X.shape[1]
+    planes = W.t().contiguous().to(torch.uint8)  # [K, Rw]: byte-packed planes
+    if nx <= 4 and nw <= 4 and K >= 2:
+        return ops.bitserial_matmul_exact(
+            _bsm.pack_activation_nibbles(X), planes, n_bits=nw, w4a4=True)
+    return ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(),
+                                      planes, n_bits=nw)
+
+
+def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
+    """Decode the two row-aligned word grids to integer row matrices, run the
+    bit-serial GEMM and scatter the exact int32 result into the broadcast
+    grid.  Each grid axis is owned by at most one operand (a product over
+    the rows of both), or every axis is shared (paired rows, as
+    ``nc_dot``'s: row ``i`` dotted with row ``i``, the diagonal of
+    ``PAIR_BLOCK``-row block products)."""
     reason = _gemm_fallback_reason(xw, ww, K=K, acc_bits=acc_bits)
+    paired = False
     if reason is None:
         X, gx = _row_grid(xw, K)
         W, gw = _row_grid(ww, K)
-        if any(a > 1 and b > 1 for a, b in zip(gx, gw)):
+        paired = gx == gw and bs._numel(gx) > 1
+        if not paired and any(a > 1 and b > 1 for a, b in zip(gx, gw)):
             reason = "non-separable broadcast grids"
     if reason is not None:
         _note("gemm", native=False)
@@ -211,18 +245,17 @@ def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
 
     P, wpr, r = bs._row_layout(K)
     nx, nw = int(xw.shape[0]), int(ww.shape[0])
-    planes = W.t().contiguous().to(torch.uint8)  # [K, Rw]: byte-packed planes
-    if nx <= 4 and nw <= 4 and K >= 2:
-        # both operands fit 4 planes: the W4A4 kernel on nibble-packed rows
-        out = ops.bitserial_matmul_exact(
-            _bsm.pack_activation_nibbles(X), planes, n_bits=nw, w4a4=True)
+    if paired:
+        O = torch.cat([
+            torch.diagonal(_exact_gemm(X[i:i + PAIR_BLOCK],
+                                       W[i:i + PAIR_BLOCK], nx, nw))
+            for i in range(0, X.shape[0], PAIR_BLOCK)]).to(torch.int64)
+        O = O.reshape(gx)
     else:
-        out = ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(),
-                                         planes, n_bits=nw)
-    O = out.to(torch.int64).reshape(gx + gw)
-    n_axes = len(gx)
-    O = O.permute([a for i in range(n_axes) for a in (i, n_axes + i)])
-    O = O.reshape(torch.broadcast_shapes(gx, gw))
+        O = _exact_gemm(X, W, nx, nw).to(torch.int64).reshape(gx + gw)
+        n_axes = len(gx)
+        O = O.permute([a for i in range(n_axes) for a in (i, n_axes + i)])
+        O = O.reshape(torch.broadcast_shapes(gx, gw))
     if r == 1:
         return O
     full = tuple(torch.broadcast_shapes(xw.shape[1:], ww.shape[1:]))

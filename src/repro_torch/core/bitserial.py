@@ -1,10 +1,12 @@
 """Bit-serial in-SRAM arithmetic — the packed word engine in PyTorch.
 
-The port of ``repro.core.bitserial`` for the parts the Inception main path
-runs.  Data lives in the transposed layout: an unsigned n-bit tensor becomes
-n binary planes (LSB first), and 32 element lanes are packed into one word,
-so one bitwise op advances 32 lanes (see the reference module for the full
-layout contract).  Two lane layouts share ``words[(n_planes, n_words)]``:
+The port of ``repro.core.bitserial``: the paper's §III arithmetic (add,
+subtract, multiply, MAC, ReLU, max, selective copy, the log-tree reduce and
+min/max, the dot) on word-packed bit planes.  Data lives in the transposed
+layout: an unsigned n-bit tensor becomes n binary planes (LSB first), and
+32 element lanes are packed into one word, so one bitwise op advances 32
+lanes (see the reference module for the full layout contract).  Two lane
+layouts share ``words[(n_planes, n_words)]``:
 
 * flat (``row_lanes == 0``): bit ``l`` of ``words[p, w]`` is plane ``p`` of
   lane ``w * 32 + l`` (lanes flattened C-order, zero-padded to 32),
@@ -14,7 +16,11 @@ layout contract).  Two lane layouts share ``words[(n_planes, n_words)]``:
 
 Word tensors are ``torch.int64`` holding the 32-bit value (CPU torch has
 no ``>>`` for ``uint32``); every complement is masked back to 32 bits.
-Tensors stay on whatever device they arrive on.
+Tensors stay on whatever device they arrive on, and the same word
+recurrence runs on either (the reference's traced ``lax.scan`` branches
+have no counterpart).  The ops accept raw ``{0,1}`` plane tensors
+``(n_bits, *lanes)`` or :class:`PackedPlanes` and return ``(planes,
+cycles)`` in the representation they were given.
 
 Cycle-model invariants (the packed engine models the same hardware):
 
@@ -27,11 +33,17 @@ Cycle-model invariants (the packed engine models the same hardware):
 a backend (core/backends.py), so modeled cycles cannot depend on the
 backend.  :class:`CompressedPlanes` is the CSR-per-bit-plane filter store
 and :func:`abft_checksums` / :func:`checksum_cycles` the ABFT integrity
-layer's references and price.  The reference host walk's zero-word
-elision statistics are not part of this package.
+layer's references and price.
+
+Zero-operand elision (EIE-style, beyond the paper): the multiply drops word
+columns whose 32 lanes all carry a zero operand and skips multiplier planes
+whose tag word is all zero, as the reference's host walk does; ``ZERO_SKIP``
+switches both off and ``SKIP_STATS`` counts them exactly as the reference
+does.  Results and modeled cycles never change from either elision.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
@@ -44,6 +56,9 @@ __all__ = [
     "pack_values",
     "unpack_values",
     "shuffle_to_rows",
+    "shuffle_to_flat",
+    "bitplane_pack",
+    "bitplane_unpack",
     "add_cycles",
     "mul_cycles",
     "div_cycles",
@@ -52,14 +67,22 @@ __all__ = [
     "minmax_cycles",
     "dot_cycles",
     "filter_occupancy",
+    "bitserial_add",
+    "bitserial_sub",
+    "bitserial_multiply",
+    "bitserial_mac",
     "bitserial_reduce",
     "bitserial_minmax",
     "selective_copy",
+    "bitserial_relu",
     "bitserial_max",
+    "bitserial_dot",
     "packed_dot_words",
     "CompressedPlanes",
     "abft_checksums",
     "checksum_cycles",
+    "SkipStats",
+    "SKIP_STATS",
     "OpCycles",
 ]
 
@@ -214,6 +237,33 @@ def unpack_values(pp: PackedPlanes, signed: bool = False) -> torch.Tensor:
     return val.reshape(pp.lane_shape)
 
 
+def bitplane_pack(x: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Integer tensor -> ``n_bits`` binary planes ``(n_bits, *x.shape)``
+    uint8, LSB first (values taken modulo 2^32, as the reference's uint32
+    cast).  The paper's transposed layout: plane index == word line, the
+    other axes == bit lines."""
+    x = torch.as_tensor(x).to(torch.int64) & _MASK
+    shifts = torch.arange(n_bits, dtype=torch.int64, device=x.device)
+    shifts = shifts.reshape((n_bits,) + (1,) * x.ndim)
+    return ((x[None] >> shifts) & 1).to(torch.uint8)
+
+
+def bitplane_unpack(planes, signed: bool = False) -> torch.Tensor:
+    """Inverse of :func:`bitplane_pack` (int64); ``signed`` reads the planes
+    as two's complement of their width.  :class:`PackedPlanes` go through
+    :func:`unpack_values`."""
+    if isinstance(planes, PackedPlanes):
+        return unpack_values(planes, signed=signed)
+    n = planes.shape[0]
+    p = planes.to(torch.int64)
+    weights = (torch.ones(n, dtype=torch.int64, device=p.device)
+               << torch.arange(n, dtype=torch.int64, device=p.device))
+    val = (p * weights.reshape((n,) + (1,) * (p.ndim - 1))).sum(dim=0)
+    if signed:
+        val = torch.where(p[-1].bool(), val - (1 << n), val)
+    return val
+
+
 def shuffle_to_rows(pp: PackedPlanes) -> PackedPlanes:
     """Flat-packed -> row-aligned (reduce layout) lane shuffle."""
     if pp.row_lanes:
@@ -222,6 +272,16 @@ def shuffle_to_rows(pp: PackedPlanes) -> PackedPlanes:
     bits = _unpack_bits32(pp.words).reshape(pp.n_planes, -1)[:, :pp.n_lanes]
     grids = _grid_bits(bits, pp.lane_shape, True)
     return PackedPlanes(_pack_bits32(grids), pp.lane_shape, _row_layout(K)[0])
+
+
+def shuffle_to_flat(pp: PackedPlanes) -> PackedPlanes:
+    """Row-aligned -> flat-packed lane shuffle (inverse of
+    :func:`shuffle_to_rows`)."""
+    if not pp.row_lanes:
+        return pp
+    flat = _ungrid(_unpack_bits32(pp.words), pp.lane_shape, pp.row_lanes)
+    grids = _grid_bits(flat, pp.lane_shape, False)
+    return PackedPlanes(_pack_bits32(grids), pp.lane_shape, 0)
 
 
 def _coerce(x) -> tuple[PackedPlanes, bool]:
@@ -306,6 +366,61 @@ def dot_cycles(k: int, n_bits: int, acc_bits: int) -> int:
             + reduce_cycles(k, acc_bits))
 
 
+# ---------------------------------------------------------------------------
+# EIE-style zero-operand elision (beyond the paper), counted as the
+# reference's host walk counts it.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class SkipStats:
+    """Accounting for the multiply's zero-operand elision (modeled cycles
+    never change: the SRAM clocks every bit slice).
+
+    ``words_*``/``lanes_*`` count word columns of the multiplier's
+    broadcast grid (kept only with ``ZERO_SKIP`` on and more than one
+    column); ``planes_*`` count multiplier plane steps, a plane with an
+    all-zero tag word being an identity that is skipped."""
+
+    lanes_total: int = 0
+    lanes_zero: int = 0  # lanes with a provably-zero operand
+    words_total: int = 0
+    words_skipped: int = 0  # whole 32-lane words elided
+    planes_total: int = 0  # multiplier plane steps seen
+    planes_skipped: int = 0  # all-zero tag planes elided
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
+
+    def snapshot(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def add(self, other: "SkipStats") -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
+
+SKIP_STATS = SkipStats()
+ZERO_SKIP = True  # module switch for the multiply's word and plane elision
+_SINKS: list[SkipStats] = []
+
+
+def _stats() -> SkipStats:
+    return _SINKS[-1] if _SINKS else SKIP_STATS
+
+
+@contextlib.contextmanager
+def counts_into(stats: SkipStats):
+    """Send the multiply's elision counts to ``stats`` instead of
+    ``SKIP_STATS`` inside the scope (``nc_conv2d`` runs a layer's walk in
+    one call but counts it per plan tile, as the reference runs it)."""
+    _SINKS.append(stats)
+    try:
+        yield stats
+    finally:
+        _SINKS.pop()
+
+
 def filter_occupancy(rows: torch.Tensor, n_bits: int, zero: int = 0):
     """Pack-time operand occupancy scan for sparsity-aware scheduling.
 
@@ -365,17 +480,57 @@ def _add_words(aw, bw, *, out_bits: int, invert_b: bool = False,
     return torch.stack(out)
 
 
-def _mul_words(aw: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
-    """Packed tag-predicated shifted-add multiply (§III-C): one step per
-    multiplier plane, full-adding the plane-shifted multiplicand into the
-    product under that plane's tag word."""
+def _nonzero_word(w: torch.Tensor) -> torch.Tensor:
+    """OR over planes: bit ``l`` set iff lane ``l`` has any live bit."""
+    out = w[0]
+    for plane in w[1:]:
+        out = out | plane
+    return out
+
+
+def _popcount32(w: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word (SWAR; int64 holds the products)."""
+    w = w - ((w >> 1) & 0x55555555)
+    w = (w & 0x33333333) + ((w >> 2) & 0x33333333)
+    w = (w + (w >> 4)) & 0x0F0F0F0F
+    return ((w * 0x01010101) & _MASK) >> 24
+
+
+def _columns(w: torch.Tensor, shape: tuple[int, ...],
+             idx: torch.Tensor) -> torch.Tensor:
+    """The word columns ``idx`` (flat indices into ``shape``) of ``w``
+    ``(n, *s)`` broadcast against ``shape``, as ``(n, len(idx))``, without
+    materializing the broadcast."""
+    s = (1,) * (len(shape) - (w.ndim - 1)) + tuple(w.shape[1:])
+    flat = torch.zeros_like(idx)
+    rem = idx
+    stride = 1
+    for d in reversed(range(len(shape))):
+        coord = rem % shape[d]
+        rem = rem // shape[d]
+        if s[d] != 1:
+            flat = flat + coord * stride
+            stride *= s[d]
+    return w.reshape(w.shape[0], -1)[:, flat]
+
+
+def _mul_words_dense(aw: torch.Tensor, bw: torch.Tensor,
+                     shape: tuple[int, ...], stats: "SkipStats"):
+    """Tag-predicated shifted-add multiply on broadcastable word tensors.
+
+    A multiplier plane whose tag word has no set bit makes every lane's
+    predicated write a no-op, so the step is skipped
+    (``planes_skipped``); results are bit-identical."""
     na, nb = aw.shape[0], bw.shape[0]
     total = na + nb
-    shape = torch.broadcast_shapes(aw.shape[1:], bw.shape[1:])
     zero = torch.zeros(shape, dtype=torch.int64, device=aw.device)
     prod = [zero] * total
+    stats.planes_total += nb
     for j in range(nb):
         tag = bw[j]
+        if ZERO_SKIP and not bool(tag.any()):
+            stats.planes_skipped += 1
+            continue
         ntag = ~tag & _MASK
         carry = zero
         for i in range(total):
@@ -384,6 +539,43 @@ def _mul_words(aw: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
             s, carry = _word_full_adder(prod[i], src, carry)
             prod[i] = (tag & s) | (ntag & prod[i])
     return torch.stack([p.expand(shape) for p in prod])
+
+
+def _mul_words(aw: torch.Tensor, bw: torch.Tensor) -> torch.Tensor:
+    """Packed tag-predicated shifted-add multiply (§III-C): one step per
+    multiplier plane, full-adding the plane-shifted multiplicand into the
+    product under that plane's tag word.
+
+    With ``ZERO_SKIP`` on and more than one word column, the columns whose
+    32 lanes all carry a zero operand are counted, and when more than an
+    eighth of them are dead only the live ones are multiplied (their
+    product lanes are exactly zero); dead multiplier planes are skipped in
+    either case.  Counted in ``SKIP_STATS`` as the reference's host walk
+    counts them; results never change."""
+    na, nb = aw.shape[0], bw.shape[0]
+    total = na + nb
+    shape = tuple(torch.broadcast_shapes(aw.shape[1:], bw.shape[1:]))
+    n_words = _numel(shape)
+    stats = _stats()
+    if ZERO_SKIP and n_words > 1:
+        active = (_nonzero_word(aw) & _nonzero_word(bw)).expand(shape)
+        active = active.reshape(-1)
+        live = active != 0
+        n_live, n_set = (int(v) for v in torch.stack(
+            [live.sum(), _popcount32(active).sum()]).tolist())
+        stats.words_total += n_words
+        stats.lanes_total += n_words * _WORD
+        stats.lanes_zero += n_words * _WORD - n_set
+        if n_live < n_words - n_words // 8:  # worth compressing
+            stats.words_skipped += n_words - n_live
+            idx = torch.nonzero(live).flatten()
+            prod_c = _mul_words_dense(_columns(aw, shape, idx),
+                                      _columns(bw, shape, idx), (n_live,),
+                                      stats)
+            prod = aw.new_zeros((total, n_words))
+            prod[:, idx] = prod_c
+            return prod.reshape((total,) + shape)
+    return _mul_words_dense(aw, bw, shape, stats)
 
 
 def _select_words(dst, src, tag) -> torch.Tensor:
@@ -408,6 +600,70 @@ def _halves(w: torch.Tensor, half: int, seg: int):
         return w[..., :hw], w[..., hw:]
     keep = _keep_mask(half, seg)
     return w & keep, (w >> half) & keep
+
+
+# ---------------------------------------------------------------------------
+# Element-wise arithmetic (§III-B, §III-C).
+# ---------------------------------------------------------------------------
+def bitserial_add(a, b, out_bits: int | None = None):
+    """Element-wise sum; ``out_bits`` defaults to the widest operand + 1.
+    Returns ``(planes, cycles)``."""
+    pa, packed_a = _coerce(a)
+    pb, packed_b = _coerce(b)
+    pa, pb = _align_pair(pa, pb)
+    n = max(pa.n_planes, pb.n_planes)
+    out_bits = out_bits if out_bits is not None else n + 1
+    ow = _add_words(pa.words, pb.words, out_bits=out_bits)
+    return _emit(ow, pa.lane_shape, packed_a or packed_b,
+                 pa.row_lanes), add_cycles(n)
+
+
+def bitserial_sub(a, b, out_bits: int | None = None):
+    """``a - b`` in two's complement (width: the widest operand + 1 by
+    default), the SRAM way: ``b``'s complement planes are read from BLB and
+    the carry latch is preset to 1 (§III-B).  The result's MSB is the sign
+    that drives the tag latch.  Returns ``(planes, cycles)``."""
+    pa, packed_a = _coerce(a)
+    pb, packed_b = _coerce(b)
+    pa, pb = _align_pair(pa, pb)
+    n = max(pa.n_planes, pb.n_planes)
+    out_bits = out_bits if out_bits is not None else n + 1
+    ow = _add_words(pa.words, pb.words, out_bits=out_bits, invert_b=True,
+                    carry_one=True)
+    return _emit(ow, pa.lane_shape, packed_a or packed_b,
+                 pa.row_lanes), add_cycles(n)
+
+
+def bitserial_multiply(a, b):
+    """Element-wise product by tag-predicated shifted adds (§III-C): ``a``
+    is the multiplicand, ``b`` the multiplier, the product has ``a_bits +
+    b_bits`` planes.  Cycles ``n^2 + 5n - 2`` with ``n`` the wider
+    operand's planes."""
+    pa, packed_a = _coerce(a)
+    pb, packed_b = _coerce(b)
+    pa, pb = _align_pair(pa, pb)
+    ow = _mul_words(pa.words, pb.words)
+    n = max(pa.n_planes, pb.n_planes)
+    return _emit(ow, pa.lane_shape, packed_a or packed_b,
+                 pa.row_lanes), mul_cycles(n)
+
+
+def bitserial_mac(acc, a, b):
+    """``acc += a * b`` keeping the accumulator's width; cycles are the
+    multiply's plus the add's.  Returns ``(planes, cycles)`` in ``acc``'s
+    representation."""
+    pacc, packed_acc = _coerce(acc)
+    pa, _ = _coerce(a)
+    pb, _ = _coerce(b)
+    pa, pb = _align_pair(pa, pb)
+    pacc, pa = _align_pair(pacc, pa)
+    pacc, pb = _align_pair(pacc, pb)
+    prod = _mul_words(pa.words, pb.words)
+    n_mul = max(pa.n_planes, pb.n_planes)
+    n_add = max(pacc.n_planes, prod.shape[0])
+    out = _add_words(pacc.words, prod, out_bits=pacc.n_planes)
+    cycles = mul_cycles(n_mul) + add_cycles(n_add)
+    return _emit(out, pacc.lane_shape, packed_acc, pacc.row_lanes), cycles
 
 
 # ---------------------------------------------------------------------------
@@ -745,6 +1001,33 @@ def bitserial_max(a, b):
     out = _select_words(pa.words, pb.words, diff[-1])  # sign of a-b
     return _emit(out, pa.lane_shape, packed_a or packed_b,
                  pa.row_lanes), add_cycles(n) + n + 1
+
+
+def bitserial_relu(x):
+    """Two's-complement ReLU: zero the lanes whose sign plane is set
+    (§IV-D).  Cycles ``n + 1``."""
+    px, packed_x = _coerce(x)
+    sign = px.words[-1]
+    out = px.words & (~sign & _MASK)
+    return _emit(out, px.lane_shape, packed_x, px.row_lanes), px.n_planes + 1
+
+
+_resize_planes = _zext  # the reference's name for plane tensors
+
+
+def bitserial_dot(x: torch.Tensor, w: torch.Tensor, n_bits: int = 8,
+                  acc_bits: int = 24):
+    """Per-lane dot product as an array column computes it: ``x``/``w``
+    unsigned integer tensors ``[..., K]``, one ``n_bits`` MAC per lane into
+    an ``acc_bits`` partial sum, then the §III-D log tree over the last
+    axis.  Returns ``(values [...] int64, cycles)``."""
+    xp = bitplane_pack(x, n_bits)
+    wp = bitplane_pack(w, n_bits)
+    acc = torch.zeros((acc_bits,) + tuple(x.shape), dtype=torch.uint8,
+                      device=xp.device)
+    acc, c_mac = bitserial_mac(acc, xp, wp)
+    red, c_red = bitserial_reduce(acc)
+    return bitplane_unpack(red)[..., 0], c_mac + c_red
 
 
 @dataclasses.dataclass

@@ -23,10 +23,18 @@ fault scopes (``core/faults.py``) take the checked path
 ABFT checksums, then walked in the reference's order so that fault draws,
 retries, quarantines and every counter equal the reference's serial loop;
 only a pass a fault hits runs again on its own.
+
+The ``walk`` backend elides zero-operand words and dead planes as the
+reference's ``host`` walk does, and ``ConvStats.engine_words_*`` and
+``bitserial.SKIP_STATS`` count that elision as the reference's one call per
+plan tile would (:func:`_tile_skip_counts`, reckoned from the tiles' word
+grids), while the layer still runs in one call.  ``gemm`` elides nothing
+and counts nothing on its native path.
 """
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Sequence
 
 import numpy as np
@@ -41,10 +49,12 @@ from repro_torch.core.cache_geometry import CacheGeometry, XEON_E5_35MB
 from repro_torch.core.mapper import LayerSpec
 
 __all__ = [
+    "nc_dot",
     "nc_conv2d",
     "nc_maxpool2d",
     "nc_avgpool2d",
     "nc_minmax",
+    "nc_relu_requant",
     "nc_fc",
     "ConvStats",
 ]
@@ -54,9 +64,10 @@ __all__ = [
 class ConvStats:
     """Per-layer emulation accounting (fields as in the reference).
 
-    ``engine_words_*`` count the reference host walk's zero-word elision,
-    which this package does not perform: they stay 0, as they do for the
-    reference's compiled engine."""
+    ``engine_words_*`` count the word columns the ``walk`` backend's
+    multiplier saw and elided (``bitserial.SKIP_STATS``), per plan tile as
+    the reference's ``host`` counts them; ``gemm``'s native path leaves
+    them 0."""
 
     lanes: int  # B*E*F*M*K MAC lanes
     zero_operand_lanes: int  # lanes a tag latch could predicate off
@@ -64,8 +75,8 @@ class ConvStats:
     tile_pixels: int  # (image, pixel) rows per tile
     tile_filters: int
     serial_passes: int  # mapper's modeled pass count for the layer (per image)
-    engine_words_total: int
-    engine_words_skipped: int
+    engine_words_total: int  # word columns the walk's multiplier saw
+    engine_words_skipped: int  # word columns elided (all-zero operand)
     batch: int = 1
     filter_loads: int = 1  # times the filter word grid was packed (§VI-C)
     zero_filters: int = 0  # all-zero filters the sparse plan pruned
@@ -82,6 +93,39 @@ class ConvStats:
     csr_payload_bytes: int = 0
     csr_index_bytes: int = 0
     plan: object = dataclasses.field(default=None, compare=False, repr=False)
+
+
+def nc_dot(x_q: torch.Tensor, w_q: torch.Tensor, acc_bits: int = 24,
+           n_bits: int = 8, *, engine: str | None = None):
+    """Quantized dot products, one per bit-line group: ``x_q``/``w_q``
+    ``[..., K]`` unsigned integers of the same shape; each lane does one
+    ``n_bits`` MAC into an ``acc_bits`` partial sum and the lanes reduce
+    through the in-array log tree.  Returns ``(int64 values [...],
+    cycles)``, exact.  Both operands are packed row-aligned and go through
+    one ``packed_dot_words`` call on ``engine`` (``None``: the backend
+    precedence, default ``gemm``)."""
+    K = x_q.shape[-1]
+    P, wpr, r = bs._row_layout(K)
+    xw = bs.pack_values(x_q, n_bits, row_align=True).words
+    ww = bs.pack_values(w_q.to(x_q.device), n_bits, row_align=True).words
+    if r == 1:
+        xw = xw.reshape(n_bits, -1, wpr)
+        ww = ww.reshape(n_bits, -1, wpr)
+    vals, cycles = bs.packed_dot_words(xw, ww, K=K, acc_bits=acc_bits,
+                                       engine=engine)
+    n_rows = bs._numel(tuple(x_q.shape[:-1]))
+    return vals.reshape(-1)[:n_rows].reshape(x_q.shape[:-1]), cycles
+
+
+def nc_relu_requant(acc: torch.Tensor, real_multiplier: float,
+                    out_zp: int = 0) -> torch.Tensor:
+    """ReLU on the int32 accumulator, then the fixed-point requantization to
+    uint8: the in-cache epilogue of every conv layer (the multiplier taken
+    as float32, as the reference)."""
+    acc = torch.clamp_min(acc, 0)  # MSB-masked zero write
+    m, s = q.fixed_point_multiplier(q.f32(real_multiplier))
+    return q.requantize_fixedpoint(acc, m, s,
+                                   zero_point=out_zp).to(torch.uint8)
 
 
 def _quantize_weights(w: torch.Tensor, qp: q.QuantParams) -> torch.Tensor:
@@ -193,6 +237,103 @@ def _dot_rows(win_flat: torch.Tensor, ww: torch.Tensor, x_bits: int, K: int,
     return out
 
 
+def _tile_skip_counts(win_flat: torch.Tensor, ww: torch.Tensor, *,
+                      x_bits: int, K: int, tile_rows: int, tile_filters: int,
+                      counted: np.ndarray) -> bs.SkipStats:
+    """``SKIP_STATS`` as the reference's ``host`` walk counts a layer: one
+    ``_mul_words`` call per plan tile, multiplying the tile's window-row
+    words ``_pack_x_rows(win_flat[p0:p1])`` by its filter columns
+    ``ww[:, m0:m1]``, for the tiles ``counted`` (``[row tiles, filter
+    tiles]`` bool) marks.
+
+    Reckoned from the word grids rather than by running the tiles: a
+    tile's word column is live when the OR over its planes of the window
+    word ANDed with that of the filter word is non-zero; the set lanes of
+    those ANDs sum per reduce lane ``k`` as (rows with ``x[., k] != 0``) x
+    (filters with ``w[., k] != 0``); a tile gathers its live columns when
+    fewer than ``n - n // 8`` of its ``n`` columns live, and a multiplier
+    plane is skipped when no (gathered) column of it is non-zero."""
+    dev = win_flat.device
+    T, M, nb = win_flat.shape[0], ww.shape[1], ww.shape[0]
+    P, wpr, r = bs._row_layout(K)
+    W = wpr if r == 1 else 1  # word positions a row's lanes span
+    n_pt, n_mt = -(-T // tile_rows), -(-M // tile_filters)
+    row_tile = torch.arange(T, device=dev) // tile_rows
+    col_tile = torch.arange(M, device=dev) // tile_filters
+    rows_in = torch.bincount(row_tile, minlength=n_pt)
+    cols_in = torch.bincount(col_tile, minlength=n_mt)
+    xnz = (win_flat.to(torch.int64) & ((1 << x_bits) - 1)) != 0  # (T, K)
+    if r == 1:
+        nzx = bs.pack_lanes(xnz[None], row_align=True).words[0].reshape(-1)
+        g_tile = row_tile.repeat_interleave(wpr)
+        wpos = torch.arange(T * wpr, device=dev) % wpr
+        words_in = rows_in * wpr
+    else:
+        # rows share words tile by tile: row p0 + j*r + i sits in slot i of
+        # the tile's word j
+        seg = (xnz.to(torch.int64)
+               << torch.arange(K, device=dev)).sum(dim=1)
+        local = torch.arange(T, device=dev) % tile_rows
+        words_in = -(-rows_in // r)
+        start = torch.cumsum(words_in, 0) - words_in
+        g = start[row_tile] + local // r
+        nzx = torch.zeros(int(words_in.sum()), dtype=torch.int64,
+                          device=dev).index_add_(
+            0, g, seg << ((local % r) * P))
+        g_tile = torch.repeat_interleave(
+            torch.arange(n_pt, device=dev), words_in)
+        wpos = torch.zeros_like(g_tile)
+    wplanes = ww.reshape(nb, M, W)
+    nzw = bs._nonzero_word(wplanes)  # (M, W)
+    live_cnt = torch.zeros((M, n_pt), dtype=torch.int64, device=dev)
+    live_at = torch.zeros((M, n_pt * W), dtype=torch.int64, device=dev)
+    G = nzx.shape[0]
+    step = max(1, (1 << 22) // max(M, 1))
+    for g0 in range(0, G, step):
+        sl = slice(g0, min(g0 + step, G))
+        act = ((nzx[None, sl] & nzw[:, wpos[sl]]) != 0).to(torch.int64)
+        live_cnt.index_add_(1, g_tile[sl], act)
+        live_at.index_add_(1, g_tile[sl] * W + wpos[sl], act)
+    live = torch.zeros((n_mt, n_pt), dtype=torch.int64,
+                       device=dev).index_add_(0, col_tile, live_cnt).t()
+    n_words = words_in[:, None] * cols_in[None, :]  # (n_pt, n_mt)
+    # set lanes of the live ANDs, per tile (exact in float64: < 2^53)
+    cx = torch.zeros((n_pt, K), dtype=torch.float64, device=dev).index_add_(
+        0, row_tile, xnz.to(torch.float64))
+    w_lanes = bs._unpack_bits32(nzw).reshape(M, -1)[:, :K] if r == 1 else (
+        (nzw[:, 0, None] >> torch.arange(K, device=dev)) & 1)
+    cw = torch.zeros((n_mt, K), dtype=torch.float64, device=dev).index_add_(
+        0, col_tile, w_lanes.to(torch.float64))
+    lanes_set = (cx @ cw.t()).to(torch.int64)
+    # dead multiplier planes: over the tile's filter words (dense), or over
+    # the filter words of its live columns (gathered)
+    plane_nz = wplanes != 0  # (nb, M, W)
+    dense_live = torch.zeros((nb, n_mt), dtype=torch.int64,
+                             device=dev).index_add_(
+        1, col_tile, plane_nz.any(dim=2).to(torch.int64)) > 0
+    live_at = (live_at > 0).reshape(M, n_pt, W)
+    gath_live = torch.stack([
+        torch.zeros((n_mt, n_pt), dtype=torch.int64, device=dev).index_add_(
+            0, col_tile, (plane_nz[j][:, None, :] & live_at).any(dim=2)
+            .to(torch.int64)) > 0
+        for j in range(nb)]).permute(0, 2, 1)  # (nb, n_pt, n_mt)
+    out = bs.SkipStats()
+    c = torch.as_tensor(counted, device=dev)
+    if bs.ZERO_SKIP:
+        seen = c & (n_words > 1)
+        gathered = seen & (live < n_words - n_words // 8)
+        dead = torch.where(gathered, nb - gath_live.sum(dim=0),
+                           nb - dense_live.sum(dim=0)[None, :])
+        words_seen = int(n_words[seen].sum())
+        out.words_total = words_seen
+        out.lanes_total = words_seen * bs._WORD
+        out.lanes_zero = words_seen * bs._WORD - int(lanes_set[seen].sum())
+        out.words_skipped = int((n_words - live)[gathered].sum())
+        out.planes_skipped = int(dead[c].sum())
+    out.planes_total = nb * int(c.sum())
+    return out
+
+
 def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
                     w_rows: torch.Tensor, ww_all: torch.Tensor, *,
                     p_tiles, m_tiles, tile_rows: int, tile_filters: int,
@@ -210,8 +351,9 @@ def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
     corrupted reads its slice of ``vals`` and its bulk verdict.  A pass
     that a fault hits runs alone through ``packed_dot_words`` (the
     corrupted execution and every re-execution), is verified on its own
-    and writes its final values back into ``vals``.  Returns the counters
-    and the effective plan."""
+    and writes its final values back into ``vals``.  Returns the counters,
+    the effective plan and ``bulk`` (``[row tiles, filter tiles]`` bool):
+    the passes whose first execution is the clean one call's."""
     dev = vals.device
     rows_total, M_live = vals.shape
     P_lay, _, r_lay = bs._row_layout(K)
@@ -270,6 +412,7 @@ def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
     n_tiles = verify_passes = reexec_passes = faults_detected = 0
     integrity_cycles = reexec_cycles = 0
     eff_plan = plan
+    first_bulk = np.zeros((n_pt, n_mt), bool)
     max_retries = fs.profile.max_retries if fs is not None else 1
     t = -1
     for pi in range(n_pt):
@@ -303,6 +446,7 @@ def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
                     v2 = out[: m1 - m0, : p1 - p0]
                 else:
                     v2 = bulk
+                    first_bulk[pi, mi] = True
                 if fs is not None:
                     v3 = fs.corrupt_values(v2, spec.name, t,
                                            filters=m1 - m0, rows=p1 - p0)
@@ -361,7 +505,7 @@ def _checked_passes(vals: torch.Tensor, win_flat: torch.Tensor,
     return dict(tiles=n_tiles, verify_passes=verify_passes,
                 reexec_passes=reexec_passes, faults_detected=faults_detected,
                 integrity_cycles=integrity_cycles,
-                reexec_cycles=reexec_cycles, plan=eff_plan)
+                reexec_cycles=reexec_cycles, plan=eff_plan, bulk=first_bulk)
 
 
 def nc_conv2d(
@@ -518,6 +662,7 @@ def nc_conv2d(
     fs = faults.active()
     integrity_on = bool(plan.integrity)
     checked = integrity_on or fs is not None
+    words0 = (bs.SKIP_STATS.words_total, bs.SKIP_STATS.words_skipped)
     p_tiles = ([(p0, min(p0 + tile_rows, rows_total))
                 for p0 in range(0, rows_total, tile_rows)] if M_live else [])
     m_tiles = [(m0, min(m0 + tile_filters, M_live))
@@ -539,8 +684,11 @@ def nc_conv2d(
                          if overlap_exec
                          else (store.payload_bytes, store.index_bytes))
             ww_all = store.dense()
-        vals = _dot_rows(win_flat, ww_all, x_qps[0].bits, K, acc_bits,
-                         engine)
+        walk = engine == "walk"
+        # the walk's own per-call counts are replaced by the per-tile ones
+        with bs.counts_into(bs.SkipStats()) if walk else nullcontext():
+            vals = _dot_rows(win_flat, ww_all, x_qps[0].bits, K, acc_bits,
+                             engine)
         if checked:
             run = _checked_passes(
                 vals, win_flat, w_rows_live, ww_all, p_tiles=p_tiles,
@@ -552,6 +700,12 @@ def nc_conv2d(
         else:
             # the plan's tiles, reported as planned; executed as one call
             run["tiles"] = len(p_tiles) * len(m_tiles)
+            run["bulk"] = np.ones((len(p_tiles), len(m_tiles)), bool)
+        if walk:
+            bs.SKIP_STATS.add(_tile_skip_counts(
+                win_flat, ww_all, x_bits=x_qps[0].bits, K=K,
+                tile_rows=tile_rows, tile_filters=tile_filters,
+                counted=run["bulk"]))
         if live_idx is None:
             out = vals
         else:
@@ -587,8 +741,8 @@ def nc_conv2d(
         tile_pixels=tile_rows,
         tile_filters=tile_filters,
         serial_passes=eff_plan.serial_passes,
-        engine_words_total=0,
-        engine_words_skipped=0,
+        engine_words_total=bs.SKIP_STATS.words_total - words0[0],
+        engine_words_skipped=bs.SKIP_STATS.words_skipped - words0[1],
         batch=B,
         filter_loads=1,
         zero_filters=M - M_live,

@@ -31,6 +31,7 @@ __all__ = [
     "quantize_per_channel",
     "fixed_point_multiplier",
     "requantize_fixedpoint",
+    "requantize_reference",
 ]
 
 
@@ -172,3 +173,15 @@ def requantize_fixedpoint(acc: torch.Tensor, multiplier: int, shift: int,
     acc = acc.to(torch.int64)
     rounded = (acc * int(multiplier) + (1 << (int(shift) - 1))) >> int(shift)
     return torch.clamp(rounded + int(zero_point), qmin, qmax).to(torch.int32)
+
+
+def requantize_reference(acc: torch.Tensor, real_multiplier,
+                         zero_point: int = 0, qmin: int = 0,
+                         qmax: int = 255) -> torch.Tensor:
+    """Float reference for :func:`requantize_fixedpoint`: ``round(f32(acc) *
+    f32(real_multiplier)) + zero_point`` (round-half-even), clipped, as
+    int32."""
+    m = torch.tensor(float(real_multiplier), dtype=torch.float32,
+                     device=acc.device)
+    out = torch.round(acc.to(torch.float32) * m) + int(zero_point)
+    return torch.clamp(out, qmin, qmax).to(torch.int32)

@@ -57,8 +57,9 @@ model definition (models/inception.py):
   ``zw * sum(x)``, bit-identical to computing them).  Pruned filters are
   also not loaded: ``filter_bytes`` shrinks to the live set (§VI-C
   residency of an EIE-style pruned network).
-* ``dead_planes`` — filter bit planes with no set bit; the host multiply
-  elides those shifted-add steps (bitserial ``SKIP_STATS.planes_skipped``)
+* ``dead_planes`` — filter bit planes with no set bit; the ``walk``
+  multiply (the reference's host) elides those shifted-add steps
+  (bitserial ``SKIP_STATS.planes_skipped``)
   with results unchanged.  Advisory for the model: per-plane elision never
   changes modeled cycles (the SRAM clocks every bit-slice of the passes it
   *does* run).
@@ -66,7 +67,7 @@ model definition (models/inception.py):
   activations (ReLU chains make post-activation zeros exact in the uint8
   resident format).  An estimate can never earn an exact cycle credit, so
   it stays advisory: it sizes the EIE-style zero-operand word elision the
-  host engine already performs and is reported alongside the measured
+  ``walk`` engine already performs and is reported alongside the measured
   zero-lane counts.
 
 Only the deterministic filter occupancy changes numbers, and only when

@@ -6,7 +6,12 @@ kernel on nibble-packed activations.  :func:`quant_matmul` is the W8A8 GEMM
 of the post-training-quantization flow (``quant/ptq.py``) and
 :func:`flash_attention` the tiled attention of the LM's full prefill
 (``models/layers.py``).  Each launches its Hopper kernel for CUDA tensors
-and runs the kernel's plain version for CPU tensors.
+and runs the kernel's plain version for CPU tensors.  So do the
+reference's scaled entry points :func:`bitserial_matmul` (signed planes,
+byte-packed or an unpacked plane stack) and :func:`bitserial_matmul_a4`
+(nibble-packed activations from :func:`pack_activations`);
+:func:`quant_matmul_xla` is the W8A8 GEMM's plain version on any device,
+as the reference's is its plain XLA lowering.
 
 Each goes through a ``torch.library`` custom op (``repro_torch::*``) with a
 fake implementation, which is what ``meta`` operands (the dry run) run:
@@ -25,8 +30,9 @@ from repro_torch.kernels import bitserial_matmul as _bsm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import quant_matmul as _qm
 
-__all__ = ["bitserial_matmul_exact", "quant_matmul", "flash_attention",
-           "pack_weights"]
+__all__ = ["bitserial_matmul_exact", "bitserial_matmul",
+           "bitserial_matmul_a4", "quant_matmul", "quant_matmul_xla",
+           "flash_attention", "pack_weights", "pack_activations"]
 
 
 @torch.library.custom_op("repro_torch::bitserial_matmul_exact",
@@ -68,6 +74,64 @@ def pack_weights(w_q: torch.Tensor, n_bits: int = 8) -> torch.Tensor:
     if not 1 <= n_bits <= 8:
         raise ValueError(f"n_bits must be in 1..8, got {n_bits}")
     return (w_q.to(torch.int64) & ((1 << n_bits) - 1)).to(torch.uint8)
+
+
+def pack_activations(x_q: torch.Tensor) -> torch.Tensor:
+    """Nibble-pack 4-bit activations ``[M, K]`` two per byte for the W4A4
+    kernel (the activation-side counterpart of :func:`pack_weights`)."""
+    return _bsm.pack_activation_nibbles(x_q)
+
+
+def _f32(t, device) -> torch.Tensor | None:
+    return None if t is None else torch.as_tensor(
+        t, dtype=torch.float32, device=device).reshape(-1)
+
+
+def bitserial_matmul(x_q: torch.Tensor, planes: torch.Tensor, x_scale,
+                     w_scale, *, n_bits: int | None = None) -> torch.Tensor:
+    """Bit-serial GEMM with the dequantization epilogue: ``f32(sum_b pw[b]
+    * (x_q @ plane_b)) * x_scale * w_scale[n]`` with two's-complement plane
+    weights (the MSB carries ``-2^(n-1)``).  ``planes`` is the byte-packed
+    ``[K, N]`` uint8 of :func:`pack_weights` (pass its ``n_bits``, default
+    8) or an unpacked ``[n_bits, K, N]`` {0, 1} stack."""
+    if planes.ndim == 3:
+        n_bits = planes.shape[0]
+        shifts = torch.arange(n_bits, dtype=torch.int64,
+                              device=planes.device).reshape(-1, 1, 1)
+        planes = ((planes.to(torch.int64) & 1) << shifts).sum(dim=0).to(
+            torch.uint8)
+    n_bits = 8 if n_bits is None else n_bits
+    return _bsm.bitserial_matmul(x_q, planes, float(x_scale),
+                                 _f32(w_scale, x_q.device), n_bits=n_bits,
+                                 out_dtype=torch.float32, signed=True)
+
+
+def bitserial_matmul_a4(x_packed: torch.Tensor, planes: torch.Tensor,
+                        x_scale, w_scale, *, k: int) -> torch.Tensor:
+    """W4A4 GEMM with the dequantization epilogue: nibble-packed signed
+    activations ``[M, ceil(k/2)]`` (:func:`pack_activations`) times
+    byte-packed 4-bit weight planes ``[k, N]``; ``k`` is the unpacked inner
+    dimension."""
+    if planes.shape[0] != k:
+        raise ValueError(f"planes have K={planes.shape[0]}, expected k={k}")
+    return _bsm.bitserial_matmul_a4(x_packed, planes, float(x_scale),
+                                    _f32(w_scale, x_packed.device), n_bits=4,
+                                    out_dtype=torch.float32, signed=True)
+
+
+def quant_matmul_xla(x_q: torch.Tensor, w_q: torch.Tensor, x_scale=1.0,
+                     w_scale=None, bias=None) -> torch.Tensor:
+    """The W8A8 GEMM's plain version on the operands' device: int32
+    accumulation, then ``f32(acc) * x_scale * w_scale[n] + bias[n]``."""
+    dev = x_q.device
+    N = w_q.shape[1]
+    ws = _f32(w_scale, dev)
+    if ws is None:
+        ws = torch.ones(N, dtype=torch.float32, device=dev)
+    elif ws.numel() == 1:
+        ws = ws.expand(N).contiguous()
+    return _qm.quant_matmul_plain(x_q, w_q, float(x_scale), ws,
+                                  _f32(bias, dev))
 
 
 @torch.library.custom_op("repro_torch::quant_matmul", mutates_args=())

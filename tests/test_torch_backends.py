@@ -4,12 +4,17 @@ bits, W4A4, SAME/VALID, stride 2, batch 1 and 4, ragged tiles, CSR and
 dense stores, integrity on and off, 0/50/100% pruning) through ``walk`` and
 ``gemm``, the FC path and raw ``packed_dot_words``.
 
-Tolerance: none.  Values, modeled cycles and every ``ConvStats`` field but
-``engine_words_*`` must be equal (those count the reference host walk's
-zero-word elision, which the port does not perform; they are 0 in the
-port), and the executed plan equal field for field.  ``gemm`` runs the
-kernels' plain versions on the CPU; a dot whose operands both fit 4 planes
-must take the W4A4 route.
+Tolerance: none.  Values, modeled cycles and every ``ConvStats`` field
+must be equal, and the executed plan equal field for field.  ``walk``
+elides zero-operand words and dead planes as ``host`` does, so its
+``engine_words_*`` and the whole ``SKIP_STATS`` snapshot must equal
+``host``'s too, with integrity on and off and on activations that are 97%
+zeros.  ``gemm`` is held to every field but ``engine_words_*``: its native
+path elides nothing and leaves them 0, where the reference's compiled
+engines count only the calls they delegate to ``host`` (``K <= 16``
+among them, which ``gemm`` decodes natively).  ``gemm`` runs the kernels'
+plain versions on the CPU; a dot whose operands both fit 4 planes must
+take the W4A4 route.
 """
 import dataclasses
 
@@ -31,7 +36,20 @@ from repro_torch.kernels import ops as tops
 torch.set_num_threads(1)
 
 PORT_BACKENDS = ["walk", "gemm"]
-UNCOUNTED = ("engine_words_total", "engine_words_skipped", "plan")
+# fields each backend is not held to (the plan is compared on its own)
+UNCOUNTED = {"walk": ("plan",),
+             "gemm": ("engine_words_total", "engine_words_skipped", "plan")}
+
+
+@pytest.fixture(autouse=True)
+def _port_engine_state():
+    """The port's ``SKIP_STATS`` and ``ZERO_SKIP`` are process-wide; the
+    reference's are reset by tests/conftest.py."""
+    tbs.SKIP_STATS.reset()
+    zero_skip = tbs.ZERO_SKIP
+    yield
+    tbs.ZERO_SKIP = zero_skip
+    tbs.SKIP_STATS.reset()
 
 
 def _case(seed, *, bits=8, M=6, C=3, R=3, prune=0.0, batch=1, img=8):
@@ -74,18 +92,20 @@ CONV_CASES = [
 ]
 
 
-def _stats(stats):
+def _stats(stats, backend):
     d = dataclasses.asdict(stats)
-    for key in UNCOUNTED:
+    for key in UNCOUNTED[backend]:
         d.pop(key)
     return d
 
 
-def _run(case, engine):
+def _run(case, engine, sparse_x=False):
     kw = dict(case)
     xq, wq, (r_x, r_w), (t_x, t_w) = _case(
         0xC0FFEE, bits=kw.pop("bits"), prune=kw.pop("prune", 0.0),
         batch=kw.setdefault("batch", 1))
+    if sparse_x:
+        xq[np.random.default_rng(5).random(xq.shape) < 0.97] = 0
     kw.pop("batch")
     stride = kw.pop("stride", 1)
     if engine == "host":
@@ -109,11 +129,61 @@ def test_conv_conformance(case, backend):
     out, cycles, st = _run(case, backend)
     np.testing.assert_array_equal(out, ref)
     assert cycles == ref_cycles
-    assert _stats(st) == _stats(ref_st)
+    assert _stats(st, backend) == _stats(ref_st, backend)
     assert dataclasses.asdict(st.plan) == dataclasses.asdict(ref_st.plan)
     d = tbackends.dispatch_stats()[backend]
     if case.get("prune") != 1.0:  # fully pruned layers run zero passes
         assert d["native"] > 0 and d["fallback"] == 0
+    if backend == "gemm":
+        assert (st.engine_words_total, st.engine_words_skipped) == (0, 0)
+
+
+@pytest.mark.parametrize("sparse_x", [False, True])
+@pytest.mark.parametrize("integrity", [False, True])
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_walk_counts_equal_host(case, integrity, sparse_x):
+    """``walk`` counts its zero-operand elision per plan tile as ``host``
+    does: ``engine_words_*`` and every ``SKIP_STATS`` field equal, over
+    the envelope with integrity on and off, on dense activations and on
+    activations that are 97% zeros (whole words elided)."""
+    case = dict(case, integrity=integrity)
+    ref, ref_cycles, ref_st = _run(case, "host", sparse_x)
+    out, cycles, st = _run(case, "walk", sparse_x)
+    np.testing.assert_array_equal(out, ref)
+    assert cycles == ref_cycles
+    assert _stats(st, "walk") == _stats(ref_st, "walk")
+    assert tbs.SKIP_STATS.snapshot() == rbs.SKIP_STATS.snapshot()
+    if case.get("prune") != 1.0:
+        assert st.engine_words_total > 0
+        if sparse_x:
+            assert st.engine_words_skipped > 0
+
+
+@pytest.mark.parametrize("tile_pixels", [None, 5])
+def test_walk_counts_dead_planes_of_gathered_columns(tile_pixels):
+    """A tile whose live word columns are gathered skips the multiplier
+    planes that none of those columns carries, though its filter words
+    carry them: K = 64 (two words a row), the second word's activations all
+    zero and its weights only in plane 7."""
+    rng = np.random.default_rng(12)
+    xq = rng.integers(0, 256, size=(2, 6, 6, 64)).astype(np.uint8)
+    xq[..., 32:] = 0
+    wq = (rng.integers(0, 128, size=(1, 1, 64, 6))).astype(np.uint8)
+    wq[:, :, 32:] = 0x80
+    r_qp = rq.QuantParams(scale=np.float32(0.05), zero_point=0)
+    t_qp = tq.QuantParams(scale=float(np.float32(0.05)), zero_point=0)
+    kw = dict(tile_pixels=tile_pixels, return_stats=True)
+    ref, _, r_st = rnc.nc_conv2d(xq, wq, [r_qp] * 2, r_qp, geom=RGEOM,
+                                 engine="host", **kw)
+    out, _, t_st = tnc.nc_conv2d(torch.from_numpy(xq), torch.from_numpy(wq),
+                                 [t_qp] * 2, t_qp, geom=TGEOM, engine="walk",
+                                 **kw)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert _stats(t_st, "walk") == _stats(r_st, "walk")
+    snap = tbs.SKIP_STATS.snapshot()
+    assert snap == rbs.SKIP_STATS.snapshot()
+    assert snap["words_skipped"] * 2 == snap["words_total"]
+    assert snap["planes_skipped"] == snap["planes_total"] // 8  # plane 7
 
 
 @pytest.mark.parametrize("backend", PORT_BACKENDS)
@@ -139,7 +209,7 @@ def test_fc_conformance(backend, batch):
                                 return_stats=True)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert cycles == ref_cycles
-    assert _stats(st) == _stats(ref_st)
+    assert _stats(st, backend) == _stats(ref_st, backend)
 
 
 def _grids(bits_x, bits_w, K, seed, T=13, M=5):

@@ -5,8 +5,9 @@ reference (``repro.core.faults``, the checked path of
 Tolerance: none.  The same profile must corrupt the same words in both
 packages; a checked ``nc_conv2d`` under each covered fault class must give
 equal outputs, cycles, ``ConvStats`` (but ``engine_words_*``, which count
-the reference host walk's zero-word elision), ``FaultState.stats()`` and
-event log.  The port verifies all passes of a layer at once and re-runs
+the ``walk`` multiplier's elision: ``walk``'s and ``SKIP_STATS`` are held
+to ``host``'s in their own test, ``gemm``'s stay 0), ``FaultState.stats()``
+and event log.  The port verifies all passes of a layer at once and re-runs
 only the passes a fault hits; these tests hold its counters to the
 reference's pass-by-pass loop.
 """
@@ -17,10 +18,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitserial as rbs
 from repro.core import faults as rfaults
 from repro.core import nc_layers as rnc
 from repro.core import quantize as rq
 from repro.core.cache_geometry import XEON_E5_35MB as RGEOM
+from repro_torch.core import bitserial as tbs
 from repro_torch.core import faults as tfaults
 from repro_torch.core import nc_layers as tnc
 from repro_torch.core import quantize as tq
@@ -186,6 +189,27 @@ def test_checked_conv_under_each_class(cls, engine):
                                   padding="SAME", return_stats=True)
     assert torch.equal(clean, port[0])
     assert port[1] == cyc + st.integrity_cycles + st.reexec_cycles
+
+
+@pytest.mark.parametrize("shape", [dict(), dict(seed=3, img=9, C=1, M=6)])
+@pytest.mark.parametrize("cls", tfaults.COVERED_CLASSES)
+def test_walk_counts_every_execution_under_faults(cls, shape):
+    """``walk`` under a fault scope counts its elision as ``host``:
+    ``engine_words_*`` and the whole ``SKIP_STATS`` snapshot equal.  A pass
+    whose operands a fault corrupts runs alone and counts that execution
+    and every re-execution; the others count the clean one call once (K =
+    9: rows share words, ragged tiles)."""
+    tbs.SKIP_STATS.reset()
+    kw = dict(tile_pixels=7, tile_filters=4) if shape else {}
+    ref, port = _both(_conv_case(**shape), cls, 0.3 if shape else 1.0,
+                      integrity=True, engine="walk", **kw)
+    _same(ref, port)
+    for key in UNCOUNTED[:2]:
+        assert getattr(ref[2], key) == getattr(port[2], key)
+    assert port[2].engine_words_total > 0
+    assert tbs.SKIP_STATS.snapshot() == rbs.SKIP_STATS.snapshot()
+    assert port[3].reexecuted > 0
+    tbs.SKIP_STATS.reset()
 
 
 @pytest.mark.parametrize("cls,rate", [("filter_flip", 0.3), ("act_flip", 0.3),

@@ -1,9 +1,10 @@
 """The port's layers against the JAX reference: outputs byte-identical,
 cycles equal, ``ConvStats`` equal field for field.
 
-The reference runs with ``engine="jit"``: its ``engine_words_*`` counters
-count the host walk's zero-word elision, which neither the reference's
-compiled engine nor the port performs, so they are 0 on both sides.
+The port's ``walk`` is held to the reference's ``host`` and ``gemm`` to
+its ``jit``: ``engine_words_*`` count the word columns the walk's
+multiplier sees and elides, which ``walk`` counts as ``host`` does and
+which neither compiled engine counts (0 on both sides).
 """
 import dataclasses
 
@@ -50,10 +51,11 @@ def _check_conv(x, w, bits, stride=1, padding="VALID", prune=0.0,
     kw_t = dict(kw)
     if prune:
         kw_r["occupancy"] = kw_t["occupancy"] = "detect"
-    want, c_want, s_want = rnc.nc_conv2d(
-        x, wq.astype(np.uint8), r_xqp, r_wqp, stride, padding=padding,
-        engine="jit", return_stats=True, **kw_r)
     for engine in engines:
+        want, c_want, s_want = rnc.nc_conv2d(
+            x, wq.astype(np.uint8), r_xqp, r_wqp, stride, padding=padding,
+            engine="host" if engine == "walk" else "jit", return_stats=True,
+            **kw_r)
         got, c_got, s_got = tnc.nc_conv2d(
             torch.from_numpy(x), torch.from_numpy(wq.astype(np.uint8)), t_xqp,
             t_wqp, stride, padding=padding, engine=engine, return_stats=True,
