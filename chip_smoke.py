@@ -54,8 +54,10 @@ results go to lines before the last; each phase prints its wall):
    the fault ledger, the checksum and re-execution cycles, the CSR bytes
    and the wall time;
 7. one batch-2 full-width forward with the kernel and one with the plain
-   version: logits and every layer report byte-identical; the correlation
-   with the float forward is printed for information; then the forward's
+   version: logits, every layer report and the reports'
+   ``NCForwardReport.summary()`` tables byte-identical (the table printed);
+   the correlation with the float forward is printed for information;
+   then the forward's
    split into pack / dot / min-max tree / requant; then, at full width on
    phase 4's first B images: ``apply(quant=True)`` against ``apply()``
    (correlation above 0.98 per image) and phase 4's emulated logits
@@ -188,7 +190,27 @@ results go to lines before the last; each phase prints its wall):
     ``local_map`` into the flash kernel, 28 launches a prompt, added to
     the kernels line) and 16 sharded decode steps a prompt (within 0.125
     of ``decode_step``), the longest prefill analysed and priced;
-12. times on the card: each kernel and one PyTorch call at its shapes
+12. ``examples``: the examples of ``repro_torch.examples`` at the
+    reference examples' sizes, three in this process on the card through
+    their functions: ``quickstart`` (§III add and multiply bit-exact at 9
+    and 102 cycles, the simulator's 4.72 ms / 18.3x / 7.7x, the W8A8 and
+    8/4/2-bit bit-serial GEMMs at 128 x 256 x 128, each relative error
+    equal to the same demo's through the plain versions on the card);
+    ``serve_quantized --neural-cache`` on the reduced Inception under
+    ``seed=7,filter=0.1,compute=0.05``, compressed, warmup re-plan (every
+    request's logits byte-identical to a standalone ``nc_forward``,
+    ``detected == corrupt_attempts``, none failed); the LM demo (reduced
+    qwen2-7b in fp32, W8 and W4, 64 tokens a run, its prefills through the
+    flash kernel, the fp32 tokens held to a batch-1 loop by phase 8's
+    rule); ``train_lm`` (the 76.1 M olmo-family config in float32, 300
+    steps of 8 x 256, checkpoints every 100 steps, the loss improved);
+    then ``multipod_dryrun`` is waited for: its command line (qwen2-7b x
+    train_4k on the (2, 16, 16) mesh of a fake 512-rank world, about 170
+    s of host work) runs in a host subprocess started before phase 10,
+    and its record must carry peak bytes, ``fits_hbm`` and the dominant
+    term; each example's wall and tok/s or step/s printed beside the
+    card;
+13. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
     ``torch._int_mm`` plus the epilogue for quant_matmul,
     ``scaled_dot_product_attention`` on KV repeated to H heads for
@@ -201,12 +223,13 @@ results go to lines before the last; each phase prints its wall):
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
-13. one JSON line listing the four kernels (launches summed over every
-    path that ran them: the Inception serving, stream-chunk and fleet runs
-    and the 8-bit ``nc_dot`` for ``bitserial_matmul``, the 4-bit path and
-    the 4-bit ``nc_dot`` for ``bitserial_matmul_a4``, the seven served LMs,
-    the two int8-cache runs and the sharded prefills for
-    ``flash_attention``), then the card
+14. one JSON line listing the four kernels (launches summed over every
+    path that ran them: the Inception serving, stream-chunk and fleet runs,
+    the 8-bit ``nc_dot`` and the examples' quickstart and Neural Cache
+    serving for ``bitserial_matmul``, the 4-bit path and the 4-bit
+    ``nc_dot`` for ``bitserial_matmul_a4``, the PTQ and the quickstart for
+    ``quant_matmul``, the seven served LMs, the two int8-cache runs, the
+    sharded prefills and the LM demo for ``flash_attention``), then the card
     line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -784,6 +807,10 @@ def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
         raise AssertionError("full-width logits: kernel != plain")
     if rk != rp:
         raise AssertionError("full-width layer reports: kernel != plain")
+    if rk.summary() != rp.summary():
+        raise AssertionError("full-width report summaries: kernel != plain")
+    log(f"[forward] the kernel forward's NCForwardReport.summary(), equal "
+        f"to the plain forward's:\n{rk.summary()}")
     if lk.shape != (x.shape[0], cfg.classes) or not bool(torch.isfinite(lk).all()):
         raise AssertionError("full-width logits not finite")
     ref = inception.apply(params, x, config=cfg)
@@ -3557,6 +3584,284 @@ def phase_distributed(timed, get_config, transformer, phase10, dev) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the examples users start from
+# ---------------------------------------------------------------------------
+EX_FAULTS = "seed=7,filter=0.1,compute=0.05"
+EX_SLO_MS = 5000.0  # the reference example's default
+EX_NC_REQUESTS = 6
+EX_TRAIN_STEPS = 300  # the reference example's run
+EX_TRAIN_SHAPE = (8, 256)  # (batch, seq) of the reference example's run
+EX_CYCLES = {"add": 9, "multiply": 102}  # n + 1 and n^2 + 5n - 2 at n = 8
+EX_SIMULATOR = ("4.72", "18.3", "7.7")  # ms, x over CPU, x over GPU (paper)
+EX_DRYRUN_TIMEOUT_S = 900  # from its start before phase 10 (170 s alone)
+
+
+def phase_ex_quickstart(quickstart, bsm, qm, dev) -> dict:
+    """The quickstart's three demos on the card: §III add and multiply
+    bit-exact at 9 and 102 cycles, the 8-lane reduce exact, the
+    simulator's 4.72 ms / 18.3x / 7.7x; then the W8A8 GEMM and the
+    bit-serial GEMM at 8, 4 and 2 bits (1 quant_matmul and 3
+    bitserial_matmul launches), each relative error equal to the same
+    demo's with both kernels swapped for their plain versions on the
+    card, which launches nothing.  Returns the launches by kernel."""
+    bits = quickstart.demo_bitserial(dev)
+    if not (bits["add_exact"] and bits["mul_exact"]
+            and bits["reduce"] == bits["reduce_want"]):
+        raise AssertionError(f"quickstart: §III results not exact: {bits}")
+    if (bits["add_cycles"], bits["mul_cycles"]) != (EX_CYCLES["add"],
+                                                    EX_CYCLES["multiply"]):
+        raise AssertionError(f"quickstart: cycles {bits}")
+    sim = quickstart.demo_simulator()
+    got = (f"{sim['ms']:.2f}", f"{sim['vs_cpu']:.1f}", f"{sim['vs_gpu']:.1f}")
+    if got != EX_SIMULATOR:
+        raise AssertionError(f"quickstart: simulator {got}, paper "
+                             f"{EX_SIMULATOR}")
+    x, w = quickstart.gemm_operands(torch.Generator().manual_seed(7), dev)
+    bsm.bitserial_matmul.launches = 0
+    qm.quant_matmul.launches = 0
+    errs = quickstart.demo_kernels(x, w)
+    torch.cuda.synchronize()
+    launches = {"bitserial_matmul": bsm.bitserial_matmul.launches,
+                "quant_matmul": qm.quant_matmul.launches}
+    want = {"bitserial_matmul": len(quickstart.GEMM_BITS), "quant_matmul": 1}
+    if launches != want:
+        raise AssertionError(f"quickstart: launches {launches}, want {want}")
+    real_bsm, real_qm = bsm.bitserial_matmul, qm.quant_matmul
+    bsm.bitserial_matmul = bsm.bitserial_matmul_plain
+    qm.quant_matmul = qm.quant_matmul_plain
+    try:
+        plain = quickstart.demo_kernels(x, w)
+    finally:
+        bsm.bitserial_matmul, qm.quant_matmul = real_bsm, real_qm
+    if (bsm.bitserial_matmul.launches, qm.quant_matmul.launches) != (
+            want["bitserial_matmul"], want["quant_matmul"]):
+        raise AssertionError("quickstart: the plain run launched a kernel")
+    if errs != plain:
+        raise AssertionError(f"quickstart: relative errors through the "
+                             f"kernels {errs} differ from the plain "
+                             f"versions' {plain}")
+    log(f"[ex-quickstart] §III add/multiply bit-exact at "
+        f"{bits['add_cycles']}/{bits['mul_cycles']} cycles, reduce "
+        f"{bits['reduce']} at {bits['reduce_cycles']} cycles; simulator "
+        f"{sim['ms']:.4f} ms ({sim['vs_cpu']:.2f}x, {sim['vs_gpu']:.2f}x); "
+        f"relative errors {errs}, equal to the plain versions' on the card; "
+        f"launches {launches}")
+    return launches
+
+
+def phase_ex_serve_nc(serve_quantized, inception, backends, bsm, dev) -> dict:
+    """``serve_quantized --neural-cache --fault-profile EX_FAULTS
+    --compressed --warmup-replan`` on the card: the reduced Inception's 6
+    images through ``NCServingEngine(max_batch=4)``, every request's logits
+    byte-identical to a standalone ``nc_forward`` (the example itself
+    holds request 0's), ``detected == corrupt_attempts``, none failed or
+    degraded, the ``gemm`` backend native and the bit-serial kernel
+    launched.  Returns the launches and the wall."""
+    cfg = serve_quantized.nc_config()
+    params = inception.init_params(torch.Generator().manual_seed(0),
+                                   config=cfg, device=dev)
+    images = serve_quantized.nc_images(cfg, EX_NC_REQUESTS)
+    bsm.bitserial_matmul.launches = 0
+    backends.dispatch_stats_clear()
+    res = serve_quantized.main_neural_cache(
+        params, cfg, images, EX_SLO_MS, EX_FAULTS, compressed=True,
+        warmup_replan=True, device=dev)
+    launches = bsm.bitserial_matmul.launches
+    gemm = backends.dispatch_stats()["gemm"]
+    fs, s = res["faults"], res["stats"]
+    if len(res["done"]) != EX_NC_REQUESTS or s["failed"]:
+        raise AssertionError(f"serve-nc: served {len(res['done'])} of "
+                             f"{EX_NC_REQUESTS}, {s['failed']} failed")
+    if any(r.degraded for r in res["done"]):
+        raise AssertionError("serve-nc: a batch left the emulation")
+    if fs["detected"] != fs["corrupt_attempts"] or fs["injected"] == 0:
+        raise AssertionError(f"serve-nc: fault ledger {fs}")
+    if gemm["native"] == 0 or launches == 0:
+        raise AssertionError(f"serve-nc: gemm dispatch {gemm}, launches "
+                             f"{launches}")
+    for r in res["done"]:
+        alone, _ = inception.nc_forward(params, images[r.rid], config=cfg,
+                                        device=dev)
+        if not bits_equal(r.logits, alone):
+            raise AssertionError(f"serve-nc: request {r.rid}'s logits "
+                                 f"differ from a standalone nc_forward")
+    log(f"[ex-serve-nc] {cfg.name}: {EX_NC_REQUESTS} images in "
+        f"{res['wall_s']:.3f} s ({EX_NC_REQUESTS / res['wall_s']:.2f} "
+        f"images/s), batches {s['batch_histogram']}; faults {fs['injected']} "
+        f"injected, {fs['detected']} detected of {fs['corrupt_attempts']} "
+        f"corrupt passes; every request's logits byte-identical to a "
+        f"standalone nc_forward; gemm dispatch {gemm}; bitserial_matmul "
+        f"launches {launches}")
+    return {"bitserial_matmul": launches, "wall_s": res["wall_s"]}
+
+
+def phase_ex_serve_lm(serve_quantized, transformer, fa, dev) -> dict:
+    """The LM demo on the card: fp32, W8 and W4 reduced qwen2-7b each
+    serving the 8 prompts of 24 tokens, 8 tokens each (64 a run), every
+    prefill's attention through the flash kernel (4 layers x 8 prompts x
+    3 runs); then each fp32 request decoded greedily by a batch-1 loop fed
+    the served tokens: each served token equal to the loop's pick unless
+    that pick's top-2 margin is below 2 * LM_LOGIT_TOL (phase 8's rule).
+    Returns the launches and each run's tok/s."""
+    cfg = serve_quantized.lm_config()
+    params = transformer.init_lm(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompts = serve_quantized.lm_prompts(cfg)
+    fa.flash_attention.launches = 0
+    runs = serve_quantized.main_lm(cfg, params, prompts, dev)
+    launches = fa.flash_attention.launches
+    want = _full_attention_layers(transformer, cfg) * len(prompts) * len(runs)
+    if launches != want:
+        raise AssertionError(f"serve-lm: flash_attention launched {launches} "
+                             f"times, want {want}")
+    total = len(prompts) * serve_quantized.LM_MAX_TOKENS
+    if any(r["tokens"] != total for r in runs.values()):
+        raise AssertionError(f"serve-lm: tokens "
+                             f"{ {t: r['tokens'] for t, r in runs.items()} }")
+    near = 0
+    for rid, out in sorted(runs["fp32"]["out"].items()):
+        toks = torch.as_tensor(prompts[rid], device=dev)[None]
+        logits, caches = transformer.prefill(cfg, params, toks, max_len=128)
+        steps, pos = [logits[0]], toks.shape[1]
+        for tok in out[:-1]:
+            nxt = torch.tensor([[tok]], dtype=torch.int32, device=dev)
+            lg, caches = transformer.decode_step(cfg, params, nxt, caches, pos)
+            steps.append(lg[0])
+            pos += 1
+        for t, (tok, lg) in enumerate(zip(out, steps)):
+            margin = _top2_margin(lg)
+            near += margin < 2 * LM_LOGIT_TOL
+            if tok != int(torch.argmax(lg)) and margin >= 2 * LM_LOGIT_TOL:
+                raise AssertionError(f"serve-lm: request {rid} token {t} "
+                                     f"differs from the batch-1 loop at a "
+                                     f"top-2 margin of {margin}")
+    log(f"[ex-serve-lm] {cfg.name} ({_lm_desc(cfg)}): "
+        + "; ".join(f"{tag} {r['tokens']} tokens in {r['wall_s']:.3f} s "
+                    f"({r['tok_s']:.1f} tok/s, {r['steps']} steps"
+                    + (f", greedy agreement {r['agreement']:.3f}"
+                       if "agreement" in r else "") + ")"
+                    for tag, r in runs.items())
+        + f"; fp32 tokens equal to a batch-1 loop's picks ({near} near-ties "
+        f"under {2 * LM_LOGIT_TOL}); flash_attention launches {launches}")
+    return {"flash_attention": launches,
+            "tok_s": {t: r["tok_s"] for t, r in runs.items()}}
+
+
+def phase_ex_train(train_lm, fa, cfg, steps, batch, seq, workdir, dev):
+    """``train_lm`` on the card: ``cfg`` trained ``steps`` steps of
+    ``batch`` x ``seq`` through ``launch.train.train`` with a checkpoint
+    every 100 steps under ``workdir`` (deleted after), the loss improved
+    (the example holds it) and every loss finite, no flash launch (under
+    grad attention takes the scan).  Returns the example's numbers."""
+    import shutil
+    shutil.rmtree(workdir, ignore_errors=True)
+    fa.flash_attention.launches = 0
+    try:
+        res = train_lm.run(cfg, steps=steps, batch=batch, seq=seq,
+                           ckpt_dir=str(workdir), device=dev)
+        ckpts = sorted(p.name for p in pathlib.Path(workdir).iterdir())
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if not all(math.isfinite(v) for v in res["losses"]):
+        raise AssertionError("train_lm: a non-finite loss")
+    if fa.flash_attention.launches:
+        raise AssertionError("train_lm: flash_attention launched under grad")
+    res["tok_s"] = batch * seq / res["step_s"]
+    log(f"[ex-train] {cfg.param_count() / 1e6:.1f}M-param {cfg.dtype} "
+        f"{cfg.family} LM, {steps} steps of {batch} x {seq}: loss "
+        f"{res['first']:.4f} -> {res['last']:.4f} (first/last {res['k']} "
+        f"steps); step {res['step_s']:.4f} s ({1 / res['step_s']:.2f} "
+        f"step/s, {res['tok_s']:.0f} tokens/s); checkpoints {ckpts}; 0 "
+        f"flash_attention launches")
+    return res
+
+
+def _start_ex_dryrun(outdir, args=()) -> tuple:
+    """``python -m repro_torch.examples.multipod_dryrun`` (default: qwen2-7b
+    x train_4k on the (2, 16, 16) mesh of a fake 512-rank world) in a host
+    subprocess, its output to files under ``outdir``; returns ``(process,
+    stdout path, start time)``.  The example dispatches on ``meta`` tensors (about 170 s
+    of DTensor's placement planning on the card's host), so it starts
+    before phase 10 and phase 12 waits for it; a fake world cannot share a
+    process with phase 11's NCCL world, so it runs on the host with the
+    card hidden, as phase 11's dry-run cells do."""
+    import os
+    outdir = pathlib.Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    out = outdir / "ex_multipod.out"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    with open(out, "w") as fo, open(outdir / "ex_multipod.err", "w") as fe:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.examples.multipod_dryrun",
+             *args, "--device", "cpu"], env=env, cwd=ROOT, stdout=fo,
+            stderr=fe)
+    return proc, out, time.perf_counter()
+
+
+def phase_ex_dryrun(proc, out, t_start: float) -> dict:
+    """Wait for :func:`_start_ex_dryrun`'s example (at most
+    EX_DRYRUN_TIMEOUT_S from ``t_start``): exit 0, the record printed as
+    JSON with ``peak_bytes_per_device``, ``fits_hbm`` and the roofline's
+    ``dominant`` term, and the example's closing lines, printed here."""
+    left = max(1.0, EX_DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start))
+    code = proc.wait(timeout=left)
+    text = pathlib.Path(out).read_text()
+    if code != 0:
+        err = pathlib.Path(out).with_suffix(".err").read_text()
+        raise AssertionError(f"multipod_dryrun: exit {code}:\n{err[-3000:]}")
+    body, tail = text.split("\n\n[", 1)
+    rec = json.loads(body)
+    for key in ("peak_bytes_per_device", "fits_hbm"):
+        if rec.get(key) is None:
+            raise AssertionError(f"multipod_dryrun: record lacks {key}")
+    if rec["roofline"].get("dominant") not in ("compute", "memory",
+                                               "collective"):
+        raise AssertionError(f"multipod_dryrun: dominant {rec['roofline']}")
+    for line in ("[" + tail).splitlines():
+        log(f"[ex-dryrun] {line}")
+    log(f"[ex-dryrun] {rec['arch']} x {rec['shape']} @ {rec['mesh']} "
+        f"({rec['chips']} ranks, fake world, meta tensors): built and "
+        f"dispatched in {rec['compile_s']} s on the host (started before "
+        f"phase 10), peak {rec['peak_bytes_per_device'] / 2 ** 30:.2f} GiB "
+        f"a device, fits 80 GiB {rec['fits_hbm']}, dominant "
+        f"{rec['roofline']['dominant']}")
+    return rec
+
+
+def phase_examples(timed, transformer, inception, backends, bsm, qm, fa,
+                   card, ex_dryrun, dev) -> dict:
+    """Phase 12: three examples of ``repro_torch.examples`` in this process
+    on the card, through their functions, at the reference examples'
+    sizes; then the wait for ``multipod_dryrun`` (``ex_dryrun``, from
+    :func:`_start_ex_dryrun`).  Returns the kernel launches by kernel."""
+    from repro_torch.examples import quickstart, serve_quantized, train_lm
+    t0 = time.perf_counter()
+    _fresh_card(dev)
+    q = timed("ex-quickstart", phase_ex_quickstart, quickstart, bsm, qm, dev)
+    nc = timed("ex-serve-nc", phase_ex_serve_nc, serve_quantized, inception,
+               backends, bsm, dev)
+    lm = timed("ex-serve-lm", phase_ex_serve_lm, serve_quantized,
+               transformer, fa, dev)
+    _fresh_card(dev)
+    tr = timed("ex-train", phase_ex_train, train_lm, fa,
+               train_lm.example_config(), EX_TRAIN_STEPS, *EX_TRAIN_SHAPE,
+               ROOT / "build" / "train_lm-smoke", dev)
+    timed("ex-dryrun", phase_ex_dryrun, *ex_dryrun)
+    wall = time.perf_counter() - t0
+    launches = {"bitserial_matmul": q["bitserial_matmul"]
+                + nc["bitserial_matmul"],
+                "quant_matmul": q["quant_matmul"],
+                "flash_attention": lm["flash_attention"]}
+    log(f"[examples] on {card}: phase wall {wall:.1f} s; serve-nc "
+        f"{nc['wall_s']:.3f} s for {EX_NC_REQUESTS} images; serve-lm tok/s "
+        f"{ {t: round(v, 1) for t, v in lm['tok_s'].items()} }; train_lm "
+        f"{tr['step_s']:.4f} s a step, {tr['tok_s']:.0f} tokens/s; kernel "
+        f"launches {launches}")
+    return launches
+
+
 def phase_registers(cuda_build):
     """Each kernel's registers a thread and spill bytes over its entry
     functions (template instantiations), from the build's ``-Xptxas -v``
@@ -3707,12 +4012,26 @@ def main() -> int:
     log(f"[lm-families] flash_attention launches by served model: "
         f"{fa_by_path}")
     launches_fa = sum(fa_by_path.values())
-    trained = phase_training(timed, get_config, transformer,
-                             ROOT / "build" / "train-ckpt", dev)
-    fa_by_path[f"{LM_ARCH} sharded prefill"] = timed(
-        "distributed", phase_distributed, timed, get_config, transformer,
-        trained, dev)
+    ex_dryrun = _start_ex_dryrun(ROOT / "build" / "dryrun")
+    try:
+        trained = phase_training(timed, get_config, transformer,
+                                 ROOT / "build" / "train-ckpt", dev)
+        fa_by_path[f"{LM_ARCH} sharded prefill"] = timed(
+            "distributed", phase_distributed, timed, get_config,
+            transformer, trained, dev)
+        examples = timed("examples", phase_examples, timed, transformer,
+                         inception, backends, bsm, qm, fa, card, ex_dryrun,
+                         dev)
+    finally:
+        _stop([(None, ex_dryrun[0])])
+    fa_by_path["examples"] = examples["flash_attention"]
     launches_fa = sum(fa_by_path.values())
+    log(f"[examples] launches added to the kernels line: {examples}; "
+        f"before them bitserial_matmul {launches}, quant_matmul "
+        f"{launches_qm}, flash_attention "
+        f"{launches_fa - examples['flash_attention']}")
+    launches += examples["bitserial_matmul"]
+    launches_qm += examples["quant_matmul"]
     rows = timed("times", phase_times, bsm, dev)
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)

@@ -10,7 +10,7 @@ The same contract as ``repro.core.backends``:
   delegations are counted in :func:`dispatch_stats`.
 * **Selection is configuration.**  Explicit ``engine=`` > the plan's
   ``backend`` field > the ``NC_TORCH_BACKEND`` environment variable > the
-  default (``gemm``).
+  caller's default > ``gemm``.
 
 Registered backends
 -------------------
@@ -69,14 +69,27 @@ DEFAULT = "gemm"
 class Backend:
     """One registered execution body for the packed bit-serial dot.
 
+    The capability flags describe the *native* envelope, as the
+    reference's do; inputs outside it are delegated to ``walk``.
     ``dot_words(xw, ww, *, K, acc_bits)`` returns int64 row values.
     ``max_grid_words`` caps the broadcast word grid one call may span (the
     walk materializes it per plane); callers split larger work into row
-    chunks.  None means unbounded."""
+    chunks.  None means unbounded.  It is not the reference's
+    ``max_lane_words``, a cap on one operand above which the Pallas adapter
+    delegates: ``gemm`` decodes operands of any size on the card, so the
+    port has no such cap."""
 
     name: str
+    # accumulator widths executed natively (None = any)
+    acc_bits: tuple[int, ...] | None
+    w4a4: bool  # dedicated nibble-packed path for <=4-plane operands
+    compressed_planes: bool  # consumes CSR-reconstructed filter tiles
+    integrity: bool  # safe under the ABFT checked/fault-injected path
     max_grid_words: int | None
     dot_words: Callable[..., torch.Tensor]
+
+    def supports_acc(self, acc_bits: int) -> bool:
+        return self.acc_bits is None or acc_bits in self.acc_bits
 
 
 _REGISTRY: dict[str, Backend] = {}
@@ -119,15 +132,18 @@ def default_backend() -> str:
 
 
 def resolve_backend(explicit: str | None = None,
-                    plan_backend: str | None = None) -> str:
+                    plan_backend: str | None = None,
+                    default: str | None = None) -> str:
     """Explicit ``engine=`` > plan's ``backend`` > ``NC_TORCH_BACKEND`` >
-    ``gemm``.  Callers raise on an explicit engine contradicting the plan
-    before resolving."""
+    ``default`` > ``gemm``.  Callers raise on an explicit engine
+    contradicting the plan before resolving."""
     if explicit is not None:
         return get_backend(explicit).name
     if plan_backend is not None:
         return get_backend(plan_backend, source="plan backend").name
-    return default_backend()
+    if default is not None:
+        default = get_backend(default, source="default").name
+    return env_backend() or default or DEFAULT
 
 
 def dispatch_stats() -> dict[str, dict[str, int]]:
@@ -194,6 +210,9 @@ def _gemm_fallback_reason(xw, ww, *, K: int, acc_bits: int) -> str | None:
     nx, nw = int(xw.shape[0]), int(ww.shape[0])
     if nx > 8 or nw > 8:
         return "more than 8 bit planes"
+    backend = _REGISTRY["gemm"]
+    if not backend.supports_acc(acc_bits):
+        return f"acc_bits={acc_bits} outside {backend.acc_bits}"
     if acc_bits < nx + nw:
         return "accumulator narrower than the product"
     if K * ((1 << nx) - 1) * ((1 << nw) - 1) >= (1 << 31):
@@ -216,7 +235,7 @@ def _exact_gemm(X: torch.Tensor, W: torch.Tensor, nx: int,
 
     K = X.shape[1]
     planes = W.t().contiguous().to(torch.uint8)  # [K, Rw]: byte-packed planes
-    if nx <= 4 and nw <= 4 and K >= 2:
+    if _REGISTRY["gemm"].w4a4 and nx <= 4 and nw <= 4 and K >= 2:
         return ops.bitserial_matmul_exact(
             _bsm.pack_activation_nibbles(X), planes, n_bits=nw, w4a4=True)
     return ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(),
@@ -262,8 +281,14 @@ def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:
     return O.expand(full[:-1] + (full[-1] * r,))
 
 
-register_backend(Backend(name="walk", max_grid_words=1 << 22,
-                         dot_words=_walk_dot_words))
-register_backend(Backend(name="gemm", max_grid_words=None,
-                         dot_words=_gemm_dot_words))
+# The walk takes any accumulator and has no nibble route.  The gemm's
+# int32 kernel sum is exact for any accumulator that holds the product (the
+# log tree widens past it), so its width test stays operand-dependent in
+# _gemm_fallback_reason; operands of <= 4 planes take the W4A4 kernel.
+register_backend(Backend(
+    name="walk", acc_bits=None, w4a4=False, compressed_planes=True,
+    integrity=True, max_grid_words=1 << 22, dot_words=_walk_dot_words))
+register_backend(Backend(
+    name="gemm", acc_bits=None, w4a4=True, compressed_planes=True,
+    integrity=True, max_grid_words=None, dot_words=_gemm_dot_words))
 

@@ -143,6 +143,17 @@ class PackedPlanes:
     def n_lanes(self) -> int:
         return _numel(self.lane_shape)
 
+    @property
+    def n_words(self) -> int:
+        return self.words.shape[1]
+
+    @property
+    def n_rows(self) -> int:
+        """Row count of the row-aligned layout (reduce groups)."""
+        if not self.row_lanes:
+            raise ValueError("flat-packed planes have no row structure")
+        return _numel(self.lane_shape[:-1])
+
     def __getitem__(self, idx) -> "PackedPlanes":
         """Plane-axis slicing (lane layout is preserved)."""
         if not isinstance(idx, slice):
@@ -813,7 +824,7 @@ def _dot_words_impl(xw: torch.Tensor, ww: torch.Tensor, *, K: int,
 
 
 def packed_dot_words(xw: torch.Tensor, ww: torch.Tensor, *, K: int,
-                     acc_bits: int, engine: str | None = None):
+                     acc_bits: int, engine: str | None = "walk"):
     """Fused row-aligned dot: ``sum_k x[row, k] * w[row, k]`` per row.
 
     ``xw``/``ww`` are word tensors ``(n_planes, *grid, row_words)`` whose
@@ -825,8 +836,9 @@ def packed_dot_words(xw: torch.Tensor, ww: torch.Tensor, *, K: int,
     Returns ``(values int64, cycles_per_row)``.  Cycles follow
     :func:`dot_cycles` and are charged HERE, before dispatch, so no backend
     can perturb the cycle model.  ``engine`` names a registered backend
-    (core/backends.py); ``None`` resolves through ``NC_TORCH_BACKEND``, then
-    the default (``gemm``)."""
+    (core/backends.py); the default is the exact walk, as the reference's
+    is its host walk, and ``None`` resolves through ``NC_TORCH_BACKEND``,
+    then ``gemm``."""
     from repro_torch.core import backends as _backends
 
     backend = _backends.get_backend(_backends.resolve_backend(engine))

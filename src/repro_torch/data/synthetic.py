@@ -71,13 +71,20 @@ class SyntheticLMDataset:
         return {"tokens": tokens, "labels": labels}
 
     def global_arrays(self, index: int,
-                      device: str | torch.device | None = None
-                      ) -> dict[str, torch.Tensor]:
+                      device: str | torch.device | None = None,
+                      sharding=None) -> dict[str, torch.Tensor]:
         """Global batch ``index`` as int32 tensors on ``device`` (default
-        ``"cuda"``)."""
+        ``"cuda"``); given a ``sharding``
+        (:func:`repro_torch.distributed.sharding.make_batch_sharding`), as
+        DTensors laid out by it."""
         dev = resolve_device(device)
-        return {k: torch.from_numpy(v).to(dev)
-                for k, v in self.host_batch(index).items()}
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in self.host_batch(index).items()}
+        if sharding is not None:
+            from repro_torch.distributed.sharding import distribute
+
+            batch = {k: distribute(v, sharding) for k, v in batch.items()}
+        return batch
 
 
 @dataclasses.dataclass
@@ -93,13 +100,9 @@ class DataIterator:
     sharding: object = None
 
     def __next__(self):
-        batch = self.dataset.global_arrays(self.next_index, self.device)
+        batch = self.dataset.global_arrays(self.next_index, self.device,
+                                           self.sharding)
         self.next_index += 1
-        if self.sharding is not None:
-            from repro_torch.distributed.sharding import distribute
-
-            batch = {k: distribute(v, self.sharding)
-                     for k, v in batch.items()}
         return batch
 
     def __iter__(self):

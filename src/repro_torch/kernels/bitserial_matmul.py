@@ -187,25 +187,42 @@ def _prepare_launch(tensors, w_scale, plane_mask, dev):
         raise TypeError(f"plane_mask must be int8, got {plane_mask.dtype}")
 
 
-def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
+def _repack_planes(planes: torch.Tensor) -> torch.Tensor:
+    """Unpacked ``[n_bits, K, N]`` {0, 1} planes -> byte-packed ``[K, N]``."""
+    shifts = torch.arange(planes.shape[0], dtype=torch.int64,
+                          device=planes.device).reshape(-1, 1, 1)
+    return ((planes.to(torch.int64) & 1) << shifts).sum(dim=0).to(
+        torch.uint8)
+
+
+def bitserial_matmul(x_q: torch.Tensor, planes: torch.Tensor,
                      x_scale: float = 1.0,
                      w_scale: torch.Tensor | None = None,
                      plane_mask: torch.Tensor | None = None, *,
-                     n_bits: int = 8, out_dtype=torch.float32,
+                     n_bits: int | None = None, out_dtype=torch.float32,
                      signed: bool = True, block_k: int = DEFAULT_BK,
                      block_n: int = DEFAULT_BN) -> torch.Tensor:
-    """Bit-serial GEMM (see the module docstring).  CUDA tensors launch the
-    Hopper kernel (and add one to ``bitserial_matmul.launches``, split K or
-    not); CPU tensors run :func:`bitserial_matmul_plain`."""
-    if x.device.type == "cpu" and planes.device.type == "cpu":
+    """Bit-serial GEMM (see the module docstring).  ``planes`` is the
+    byte-packed ``[K, N]`` uint8 (``n_bits`` None means 8) or, as the
+    reference accepts, a legacy unpacked ``[n_bits, K, N]`` {0, 1} stack,
+    re-packed to bytes here (``n_bits`` is then its plane count).  CUDA
+    tensors launch the Hopper kernel (and add one to
+    ``bitserial_matmul.launches``, split K or not); CPU tensors run
+    :func:`bitserial_matmul_plain`."""
+    if planes.ndim == 3:
+        n_bits = planes.shape[0]
+        planes = _repack_planes(planes)
+    elif n_bits is None:
+        n_bits = 8
+    if x_q.device.type == "cpu" and planes.device.type == "cpu":
         return bitserial_matmul_plain(
-            x, planes, x_scale, w_scale, plane_mask, n_bits=n_bits,
+            x_q, planes, x_scale, w_scale, plane_mask, n_bits=n_bits,
             out_dtype=out_dtype, signed=signed, block_k=block_k,
             block_n=block_n)
-    M, N, K, bk, bn = _check(x, planes, x_scale, w_scale, plane_mask, n_bits,
+    M, N, K, bk, bn = _check(x_q, planes, x_scale, w_scale, plane_mask, n_bits,
                              out_dtype, block_k, block_n)
-    dev = x.device
-    _prepare_launch([("x", x), ("planes", planes), ("w_scale", w_scale),
+    dev = x_q.device
+    _prepare_launch([("x_q", x_q), ("planes", planes), ("w_scale", w_scale),
                      ("plane_mask", plane_mask)], w_scale, plane_mask, dev)
     if out_dtype == torch.float32 and w_scale is None:
         w_scale = torch.ones(N, dtype=torch.float32, device=dev)
@@ -225,7 +242,7 @@ def bitserial_matmul(x: torch.Tensor, planes: torch.Tensor,
     nk, nn = -(-K // bk), -(-N // bn)
     with torch.cuda.device(dev):
         err = lib.bitserial_gemm(
-            x.data_ptr(), int(x.dtype == torch.int8), planes.data_ptr(),
+            x_q.data_ptr(), int(x_q.dtype == torch.int8), planes.data_ptr(),
             plane_mask.data_ptr() if plane_mask is not None else None,
             bk, bn, nk, nn,
             w_scale.data_ptr() if w_scale is not None else None,

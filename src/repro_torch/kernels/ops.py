@@ -94,13 +94,6 @@ def bitserial_matmul(x_q: torch.Tensor, planes: torch.Tensor, x_scale,
     weights (the MSB carries ``-2^(n-1)``).  ``planes`` is the byte-packed
     ``[K, N]`` uint8 of :func:`pack_weights` (pass its ``n_bits``, default
     8) or an unpacked ``[n_bits, K, N]`` {0, 1} stack."""
-    if planes.ndim == 3:
-        n_bits = planes.shape[0]
-        shifts = torch.arange(n_bits, dtype=torch.int64,
-                              device=planes.device).reshape(-1, 1, 1)
-        planes = ((planes.to(torch.int64) & 1) << shifts).sum(dim=0).to(
-            torch.uint8)
-    n_bits = 8 if n_bits is None else n_bits
     return _bsm.bitserial_matmul(x_q, planes, float(x_scale),
                                  _f32(w_scale, x_q.device), n_bits=n_bits,
                                  out_dtype=torch.float32, signed=True)

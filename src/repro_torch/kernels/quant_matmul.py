@@ -86,12 +86,21 @@ def quant_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
 
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
                  w_scale: torch.Tensor,
-                 bias: torch.Tensor | None = None) -> torch.Tensor:
+                 bias: torch.Tensor | None = None, *,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """W8A8 GEMM (see the module docstring).  CUDA tensors launch the Hopper
     kernel (split K or not, one count); CPU tensors run
-    :func:`quant_matmul_plain`."""
+    :func:`quant_matmul_plain`.  The float32 result is cast to
+    ``out_dtype``, as the reference's epilogue casts it."""
     if x_q.device.type == "cpu" and w_q.device.type == "cpu":
-        return quant_matmul_plain(x_q, w_q, x_scale, w_scale, bias)
+        out = quant_matmul_plain(x_q, w_q, x_scale, w_scale, bias)
+    else:
+        out = _launch(x_q, w_q, x_scale, w_scale, bias)
+    return out if out_dtype == torch.float32 else out.to(out_dtype)
+
+
+def _launch(x_q, w_q, x_scale, w_scale, bias) -> torch.Tensor:
+    """One launch of ``quant_gemm.cu`` on CUDA operands (float32 result)."""
     M, N, K = _check(x_q, w_q, w_scale, bias)
     dev = x_q.device
     _cb.check_operands([("x_q", x_q), ("w_q", w_q), ("w_scale", w_scale),

@@ -288,18 +288,20 @@ def _iter_convs(config: InceptionConfig = FULL):
 
 def init_params(generator: torch.Generator,
                 config: InceptionConfig = FULL,
-                device: str | torch.device | None = None) -> dict:
-    """He-normal filters, unit scale, zero bias, drawn on the CPU from
-    ``generator`` (so a seed gives the same weights on every device) and
-    moved to ``device`` (default ``"cuda"``)."""
+                device: str | torch.device | None = None,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """He-normal filters, unit scale, zero bias, drawn in float32 on the
+    CPU from ``generator`` (so a seed gives the same weights on every
+    device), cast to ``dtype`` and moved to ``device`` (default
+    ``"cuda"``)."""
     dev = resolve_device(device)
     params = {}
     for name, r, s, c, m in _iter_convs(config):
         w = torch.randn((r, s, c, m), generator=generator,
                         dtype=torch.float32) * (2.0 / (r * s * c)) ** 0.5
-        params[name] = {"w": w.to(dev),
-                        "scale": torch.ones(m, dtype=torch.float32, device=dev),
-                        "bias": torch.zeros(m, dtype=torch.float32, device=dev)}
+        params[name] = {"w": w.to(dev, dtype),
+                        "scale": torch.ones(m, dtype=dtype, device=dev),
+                        "bias": torch.zeros(m, dtype=dtype, device=dev)}
     return params
 
 
@@ -460,6 +462,28 @@ class NCForwardReport:
     @property
     def total_skipped_passes(self) -> int:
         return sum(l.skipped_passes for l in self.layers)
+
+    def summary(self) -> str:
+        """Paper-style per-layer cycle table (Figure 13 analogue), the
+        reference's text byte for byte."""
+        lines = [f"# {self.config_name}: per-layer cycles "
+                 f"(emulated arithmetic | modeled passes)"]
+        lines.append(f"{'layer':32s} {'kind':8s} {'emulated':>14s} "
+                     f"{'modeled':>14s} {'passes':>7s} {'zero-lanes':>11s}")
+        for l in self.layers:
+            lines.append(
+                f"{l.name:32s} {l.kind:8s} {l.emulated_cycles:14d} "
+                f"{l.modeled_cycles:14.0f} {l.serial_passes:7d} "
+                f"{l.zero_operand_lanes:11d}")
+        lines.append(
+            f"{'TOTAL':32s} {'':8s} {self.total_emulated_cycles:14d} "
+            f"{self.total_modeled_cycles:14.0f} {'':7s} "
+            f"{self.total_zero_operand_lanes:11d}")
+        lines.append(f"# modeled latency {self.total_modeled_s * 1e3:.3f} ms")
+        if self.total_skipped_passes:
+            lines.append(f"# sparse schedule: {self.total_skipped_passes} "
+                         f"zero-filter passes skipped per image")
+        return "\n".join(lines)
 
 
 _REQUANT_PASS_CYCLES = bs.mul_cycles(32) + bs.add_cycles(32)  # per lockstep pass

@@ -147,6 +147,45 @@ def attention_init(cfg: ModelConfig, generator, device=None) -> dict:
     return p
 
 
+def _split_heads(t, B: int, T: int, n: int, hd: int):
+    """``[B, T, n * hd]`` -> ``[B, n, T, hd]``.  A DTensor split on its
+    last dim over a mesh dim whose size does not divide ``n`` (qwen2-7b's
+    28 heads, or 4 KV heads, over a 16-wide ``model`` axis) is first
+    gathered on that mesh dim: DTensor cannot view a split dim into heads
+    that cross shard boundaries, where GSPMD reshards in the reference."""
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate
+
+        mesh = t.device_mesh
+        pls = [Replicate() if p.is_shard(t.ndim - 1) and n % mesh.size(i)
+               else p for i, p in enumerate(t.placements)]
+        if pls != list(t.placements):
+            t = t.redistribute(mesh, pls)
+    return t.reshape(B, T, n, hd).transpose(1, 2)
+
+
+def _merge_heads(out, n: int, wo):
+    """``[B, n, T, hd]`` -> ``[B, T, n * hd]``.  On a DTensor whose heads
+    :func:`_split_heads` gathered over a mesh dim that splits the rows of
+    ``wo`` (the output projection), the merged dim is split there again: a
+    local slice, whose backward gathers the gradient before it is viewed
+    back into heads (DTensor cannot view a gradient split off the head
+    boundaries)."""
+    B, _, T, hd = out.shape
+    out = out.transpose(1, 2).reshape(B, T, n * hd)
+    if is_dtensor(out) and is_dtensor(wo):
+        from torch.distributed.tensor import Shard
+
+        mesh = out.device_mesh
+        pls = [Shard(2) if po.is_replicate() and pw.is_shard(wo.ndim - 2)
+               and n % mesh.size(i) else po
+               for i, (po, pw) in enumerate(zip(out.placements,
+                                                wo.placements))]
+        if pls != list(out.placements):
+            out = out.redistribute(mesh, pls)
+    return out
+
+
 def _qkv(cfg: ModelConfig, p: dict, x, positions):
     B, T, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -155,9 +194,9 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
     v = x @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, T, H, hd).transpose(1, 2)
-    k = k.reshape(B, T, Hkv, hd).transpose(1, 2)
-    v = v.reshape(B, T, Hkv, hd).transpose(1, 2)
+    q = _split_heads(q, B, T, H, hd)
+    k = _split_heads(k, B, T, Hkv, hd)
+    v = _split_heads(v, B, T, Hkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -517,8 +556,7 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
                 new = {"k": kq, "v": vq, "ks": ks1, "vs": vs1}
             for name, val in new.items():
                 _write_slots(cache[name], 0, val)
-    Tq = out.shape[2]
-    out = out.transpose(1, 2).reshape(B, Tq, cfg.n_heads * cfg.hd)
+    out = _merge_heads(out, cfg.n_heads, p["wo"])
     return out @ p["wo"], cache
 
 

@@ -555,12 +555,29 @@ def _chunk_loss(cfg, params, h, lab):
     logits = _head(cfg, params, h).to(getattr(torch, cfg.loss_dtype))
     logits = _constrain(cfg, logits, "logits")
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(
-        logits, torch.clamp_min(lab, 0)[..., None].to(torch.int64),
-        dim=-1)[..., 0]
+    gold = _gold_logits(logits, torch.clamp_min(lab, 0).to(torch.int64))
     valid = lab >= 0
     ce = torch.where(valid, logz - gold, 0.0)
     return ce.sum(dtype=torch.float32), valid.sum(dtype=torch.int32)
+
+
+def _gold_logits(logits, lab):
+    """``logits[..., lab]``.  Logits split on the vocab (a DTensor) pick
+    the label as a masked sum over the vocab, each rank's slice giving its
+    part: ``take_along_dim`` on a split vocab leaves a masked-partial gold
+    that DTensor fails to reduce on a mesh of three dims.  One term of the
+    sum is the label's logit and the others exact zeros, so both forms
+    give the same bits and gradients."""
+    if is_dtensor(logits) and any(p.is_shard(logits.ndim - 1)
+                                  for p in logits.placements):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        mesh = logits.device_mesh
+        vocab = DTensor.from_local(  # the same vocab index on every rank
+            torch.arange(logits.shape[-1], device=logits.to_local().device),
+            mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return torch.where(vocab == lab[..., None], logits, 0.0).sum(-1)
+    return torch.take_along_dim(logits, lab[..., None], dim=-1)[..., 0]
 
 
 def _loss_is_rowwise(cfg, h, lab) -> bool:

@@ -268,3 +268,60 @@ def test_gemm_routes_four_plane_dots_to_a4(monkeypatch, bits_x, bits_w, K):
     assert w4a4 == a4
     assert p_shape[0] == K
     assert x_shape[1] == ((K + 1) // 2 if a4 else K)
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("K", [144, 9])
+def test_bare_packed_dot_words_runs_the_reference_default(monkeypatch, K,
+                                                          sparse):
+    """A call without ``engine=`` runs the exact walk, as the reference's
+    runs its host walk, and neither package reads its environment variable
+    for it: values, cycles and the ``SKIP_STATS`` snapshot equal the
+    reference's, on dense rows and on rows mostly zero."""
+    monkeypatch.setenv("NC_TORCH_BACKEND", "gemm")
+    monkeypatch.setenv("NC_BACKEND", "jit")
+    rng = np.random.default_rng(K + sparse)
+    x = rng.integers(0, 256, size=(40, K))
+    if sparse:
+        x[rng.random(40) < 0.9] = 0
+    w = rng.integers(0, 256, size=(5, K))
+    rx, rw = (rnc._pack_x_rows(x.astype(np.uint32), 8),
+              rnc._pack_w_rows(w.astype(np.uint32), 8))
+    tx, tw = (tnc._pack_x_rows(torch.from_numpy(x), 8),
+              tnc._pack_w_rows(torch.from_numpy(w), 8))
+    rbs.SKIP_STATS.reset()
+    tbackends.dispatch_stats_clear()
+    ref, ref_cycles = rbs.packed_dot_words(rx, rw, K=K, acc_bits=32)
+    vals, cycles = tbs.packed_dot_words(tx, tw, K=K, acc_bits=32)
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(ref))
+    assert cycles == ref_cycles
+    snap = tbs.SKIP_STATS.snapshot()
+    assert snap == rbs.SKIP_STATS.snapshot()
+    assert snap["planes_total"] > 0
+    stats = tbackends.dispatch_stats()
+    assert stats["walk"] == {"native": 1, "fallback": 0}
+    assert stats["gemm"] == {"native": 0, "fallback": 0}
+
+
+def test_capability_envelope(monkeypatch):
+    """The flags say what each body does natively: both take any
+    accumulator, CSR-reconstructed tiles and the checked path; only
+    ``gemm`` has a nibble route.  ``gemm`` reads ``supports_acc``: narrowed
+    to 32-bit accumulators, a 24-bit one delegates to the walk, exactly."""
+    walk, gemm = tbackends.get_backend("walk"), tbackends.get_backend("gemm")
+    assert (walk.acc_bits, walk.w4a4, walk.compressed_planes,
+            walk.integrity) == (None, False, True, True)
+    assert (gemm.acc_bits, gemm.w4a4, gemm.compressed_planes,
+            gemm.integrity) == (None, True, True, True)
+    assert walk.supports_acc(24) and gemm.supports_acc(40)
+    _, (tx, tw) = _grids(8, 8, 37, 3)
+    want, _ = tbs.packed_dot_words(tx, tw, K=37, acc_bits=24, engine="walk")
+    monkeypatch.setitem(tbackends._REGISTRY, "gemm",
+                        dataclasses.replace(gemm, acc_bits=(32,)))
+    for acc, native in ((24, 0), (32, 1)):
+        tbackends.dispatch_stats_clear()
+        got, _ = tbs.packed_dot_words(tx, tw, K=37, acc_bits=acc,
+                                      engine="gemm")
+        assert torch.equal(got, want)
+        assert tbackends.dispatch_stats()["gemm"] == {
+            "native": native, "fallback": 1 - native}

@@ -112,6 +112,40 @@ def test_backend_precedence_and_env(monkeypatch):
         tbk.resolve_backend()
 
 
+def test_resolve_backend_default_precedence(monkeypatch):
+    """explicit > plan > ``NC_TORCH_BACKEND`` > ``default`` > ``gemm``, the
+    reference's order (whose last word is ``host``)."""
+    monkeypatch.delenv("NC_TORCH_BACKEND", raising=False)
+    assert tbk.resolve_backend(default="walk") == "walk"
+    assert tbk.resolve_backend(default=None) == "gemm"
+    assert tbk.resolve_backend(plan_backend="gemm", default="walk") == "gemm"
+    assert tbk.resolve_backend("gemm", "walk", default="walk") == "gemm"
+    with pytest.raises(ValueError, match="gemm, walk"):
+        tbk.resolve_backend(default="host")
+    monkeypatch.setenv("NC_TORCH_BACKEND", "gemm")
+    assert tbk.resolve_backend(default="walk") == "gemm"
+    assert tbk.resolve_backend(plan_backend="walk", default="gemm") == "walk"
+
+
+@pytest.mark.parametrize("row_align", [False, True])
+@pytest.mark.parametrize("shape", [(5, 37), (3, 4, 9), (70,)])
+def test_packed_planes_words_and_rows(row_align, shape):
+    """``n_words`` and ``n_rows`` as the reference's; ``n_rows`` raises the
+    reference's error on flat-packed planes."""
+    x = np.random.default_rng(len(shape)).integers(0, 256, size=shape,
+                                                   dtype=np.uint64)
+    ref = rbs.pack_values(x, 8, row_align=row_align)
+    got = tbs.pack_values(_t(x), 8, row_align=row_align)
+    assert got.n_words == ref.n_words
+    if row_align:
+        assert got.n_rows == ref.n_rows == int(np.prod(shape[:-1]))
+        return
+    for pp in (ref, got):
+        with pytest.raises(ValueError,
+                           match="flat-packed planes have no row structure"):
+            pp.n_rows
+
+
 @pytest.mark.parametrize("k", [1, 2, 5, 9, 32, 33, 100])
 @pytest.mark.parametrize("width", [8, 32])
 def test_reduce_and_minmax_equal(k, width):

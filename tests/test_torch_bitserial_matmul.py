@@ -92,6 +92,30 @@ def test_exact_entry_equals_reference_ops(case):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("case", CASES[1:5], ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("layout", ["unpacked", "bytes-default"])
+def test_wrapper_takes_the_reference_calling_forms(case, layout):
+    """``bitserial_matmul(x_q=..., planes)`` as the reference is called: a
+    legacy unpacked ``[n_bits, K, N]`` {0, 1} stack (re-packed to bytes,
+    ``n_bits`` its plane count), or byte-packed planes with ``n_bits``
+    left at None (8).  Equal to the Pallas kernel in interpret mode."""
+    M, K, N, n_bits = case
+    if layout == "bytes-default":
+        n_bits = 8
+    x, planes, w_scale = _operands(M, K, N, n_bits, M + K, True)
+    if layout == "unpacked":
+        planes = np.stack([(planes >> b) & 1 for b in range(n_bits)])
+    want = np.asarray(rk.bitserial_matmul(
+        x_q=jnp.asarray(x), planes=jnp.asarray(planes),
+        x_scale=jnp.float32(0.37), w_scale=jnp.asarray(w_scale),
+        interpret=True))
+    got = tk.bitserial_matmul(x_q=torch.from_numpy(x),
+                              planes=torch.from_numpy(planes), x_scale=0.37,
+                              w_scale=torch.from_numpy(w_scale))
+    assert got.dtype == torch.float32
+    assert (got.numpy().view(np.int32) == want.view(np.int32)).all()
+
+
 def test_plane_block_mask_equals_reference():
     x, planes, _ = _operands(4, 600, 300, 8, 1, False)
     planes[256:512] &= 0x0F  # some empty plane blocks

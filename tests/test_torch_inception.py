@@ -19,6 +19,7 @@ import torch
 
 from repro.core import faults as rfaults
 from repro.core import schedule as rsched
+from repro.core.cache_geometry import XEON_E5_35MB as RGEOM
 from repro.models import inception as ri
 from repro_torch.core import faults as tfaults
 from repro_torch.core import schedule as tsched
@@ -151,6 +152,47 @@ def test_init_params_seeded_and_shaped():
     for name in a:
         assert torch.equal(a[name]["w"], b[name]["w"])
         assert tuple(a[name]["w"].shape) == ref[name]["w"].shape
+
+
+def test_init_params_dtype_casts_the_float32_draw():
+    """``dtype=`` casts the same seed's float32 draw; the default is that
+    draw unchanged, bit for bit."""
+    cfg = ti.reduced_config(**TINY["stem"])
+    f32 = ti.init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    dflt = ti.init_params(torch.Generator().manual_seed(3), cfg,
+                          device="cpu", dtype=torch.float32)
+    bf16 = ti.init_params(torch.Generator().manual_seed(3), cfg,
+                          device="cpu", dtype=torch.bfloat16)
+    for name in f32:
+        for k in ("w", "scale", "bias"):
+            assert torch.equal(dflt[name][k], f32[name][k])
+            assert f32[name][k].dtype == torch.float32
+            assert bf16[name][k].dtype == torch.bfloat16
+            assert torch.equal(bf16[name][k], f32[name][k].to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("pruned", [False, True])
+def test_forward_report_summary_equals_reference(pruned):
+    """``NCForwardReport.summary()`` is the reference's text byte for byte:
+    header, column widths, TOTAL and modeled-latency lines, and the sparse
+    schedule line when pruned filters' passes were skipped (the mixed_a
+    network on one slice, where its layers' passes serialize)."""
+    rc, tc = (ri.reduced_config(**TINY["mixed_a"]),
+              ti.reduced_config(**TINY["mixed_a"]))
+    rparams = ri.init_params(jax.random.key(0), config=rc)
+    tparams = ti.params_from_jax(rparams, device="cpu")
+    x = np.random.default_rng(8).random((rc.img, rc.img, 3), dtype=np.float32)
+    r_kw, t_kw = {}, {}
+    if pruned:
+        r_kw = dict(sparse=True, geom=RGEOM.scaled(1), wpack=ri.prune_wpack(
+            ri.prepare_conv_weights(rparams, rc)))
+        t_kw = dict(sparse=True, geom=TGEOM.scaled(1), wpack=ti.prune_wpack(
+            ti.prepare_conv_weights(tparams, tc)))
+    _, want = ri.nc_forward(rparams, x, config=rc, engine="jit", **r_kw)
+    _, got = ti.nc_forward(tparams, x, config=tc, device="cpu", **t_kw)
+    assert got.summary() == want.summary()
+    assert (got.total_skipped_passes > 0) == pruned
+    assert ("# sparse schedule:" in got.summary()) == pruned
 
 
 def test_cuda_without_gpu_raises():

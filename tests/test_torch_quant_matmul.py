@@ -137,6 +137,24 @@ def test_wrapper_runs_plain_on_cpu(with_bias):
         assert _ulps(got.numpy(), np.asarray(ref)).max() <= 1
 
 
+def test_wrapper_out_dtype_casts_the_float32_epilogue():
+    """``out_dtype=`` casts the float32 epilogue, as the reference's kernel
+    casts it on the way out: bit-equal to the float32 result cast, and
+    within one bfloat16 ulp of the reference's (whose float32 result may
+    sit one float32 ulp away, which can move the bf16 rounding by one)."""
+    x, w, xs, ws, _ = _operands(37, 70, 29, 6)
+    f32 = tqm.quant_matmul(*_t(x, w), float(xs), torch.from_numpy(ws))
+    got = tqm.quant_matmul(*_t(x, w), float(xs), torch.from_numpy(ws),
+                           out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, f32.to(torch.bfloat16))
+    want = np.asarray(rqm(jnp.asarray(x), jnp.asarray(w), xs,
+                          jnp.asarray(ws), out_dtype=jnp.bfloat16,
+                          interpret=True)).astype(np.float32)
+    spacing = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+    assert (np.abs(got.float().numpy() - want) <= spacing).all()
+
+
 def test_rejects_bad_operands():
     x = torch.zeros((4, 8), dtype=torch.int8)
     w = torch.zeros((8, 3), dtype=torch.int8)
