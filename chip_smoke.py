@@ -182,7 +182,8 @@ results go to lines before the last; each phase prints its wall):
     then the dry run of olmo-1b x
     train_4k and moonshot-v1-16b-a3b x decode_32k on a (16, 16) mesh of a
     fake 256-rank world starts (``python -m repro_torch.launch.dryrun``,
-    one subprocess a cell on the host, waited for last; each must exit 0
+    one subprocess a cell on the host, waited for last, beside phase 12's
+    ``multipod_dryrun``, started with them; each must exit 0
     with ``"ok": true``; peak bytes a device, FLOPs, bytes, collectives by
     kind, the dominant roofline term and the sharding fallbacks printed)
     while ``dist-serve`` runs full-width qwen2-7b's 4 prompts through the
@@ -199,17 +200,19 @@ results go to lines before the last; each phase prints its wall):
     ``serve_quantized --neural-cache`` on the reduced Inception under
     ``seed=7,filter=0.1,compute=0.05``, compressed, warmup re-plan (every
     request's logits byte-identical to a standalone ``nc_forward``,
+    and to one with the kernels swapped for their plain versions,
     ``detected == corrupt_attempts``, none failed); the LM demo (reduced
     qwen2-7b in fp32, W8 and W4, 64 tokens a run, its prefills through the
-    flash kernel, the fp32 tokens held to a batch-1 loop by phase 8's
-    rule); ``train_lm`` (the 76.1 M olmo-family config in float32, 300
-    steps of 8 x 256, checkpoints every 100 steps, the loss improved);
-    then ``multipod_dryrun`` is waited for: its command line (qwen2-7b x
-    train_4k on the (2, 16, 16) mesh of a fake 512-rank world, about 170
-    s of host work) runs in a host subprocess started before phase 10,
-    and its record must carry peak bytes, ``fits_hbm`` and the dominant
-    term; each example's wall and tok/s or step/s printed beside the
-    card;
+    flash kernel, each served attention call held against the plain
+    version on its q, k, v, the fp32 tokens held to a batch-1 loop by
+    phase 8's rule); ``train_lm`` (the 76.1 M olmo-family config in
+    float32, 300 steps of 8 x 256, checkpoints every 100 steps, the loss
+    improved); then ``multipod_dryrun`` is waited for: its command line
+    (qwen2-7b x train_4k on the (2, 16, 16) mesh of a fake 512-rank world,
+    about 170 s of host work) runs in a host subprocess started in phase
+    11 after the timed train steps, and its record must carry peak bytes,
+    ``fits_hbm`` and the dominant term; each example's wall and tok/s or
+    step/s printed beside the card;
 13. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
     ``torch._int_mm`` plus the epilogue for quant_matmul,
@@ -3157,6 +3160,7 @@ DIST_DECODE_TOKENS = 16
 DIST_DRYRUN_CELLS = (("olmo-1b", "train_4k"),
                      ("moonshot-v1-16b-a3b", "decode_32k"))
 DIST_DRYRUN_TIMEOUT_S = 170
+EX_DRYRUN = "multipod_dryrun"  # the example among the host's dry runs
 DIST_PHASE_LIMIT_S = 180
 
 
@@ -3172,24 +3176,43 @@ def _one_rank_mesh(dev):
     return make_local_mesh(1, 1, device=dev)
 
 
-def _start_dryruns(outdir):
-    """The dry run of DIST_DRYRUN_CELLS, one subprocess a cell on the host
-    (a fake world cannot share a process with the card's world), started
-    together; :func:`_finish_dryruns` waits for them."""
+def _start_dryruns(outdir, cells=DIST_DRYRUN_CELLS, example=()) -> list:
+    """The host's dry runs, started together: one ``repro_torch.launch.
+    dryrun`` subprocess for each of ``cells`` and the ``multipod_dryrun``
+    example with ``example``'s arguments (by default qwen2-7b x train_4k on
+    the (2, 16, 16) mesh of a fake 512-rank world).  A fake world cannot
+    share a process with the card's world, so each runs on the host with
+    the card hidden and one thread, its stdout and stderr in ``outdir/<name>
+    .out`` and ``.err``.  Returns ``[(key, process)]``, key ``(arch,
+    shape)`` for a cell (:func:`_finish_dryruns` waits for them) and
+    EX_DRYRUN for the example (:func:`phase_ex_dryrun`)."""
     import os
     outdir = pathlib.Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+
+    def start(name, argv):
+        with open(outdir / f"{name}.out", "w") as fo, \
+                open(outdir / f"{name}.err", "w") as fe:
+            return subprocess.Popen([sys.executable, "-m", *argv], env=env,
+                                    cwd=ROOT, stdout=fo, stderr=fe)
+
     procs = []
-    for arch, shape in DIST_DRYRUN_CELLS:
+    for arch, shape in cells:
         (outdir / f"{arch}__{shape}__single.json").unlink(missing_ok=True)
-        procs.append(((arch, shape), subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single", "--out",
-             str(outdir)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+        procs.append(((arch, shape), start(f"{arch}__{shape}", [
+            "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+            "--mesh", "single", "--out", str(outdir)])))
+    procs.append((EX_DRYRUN, start(EX_DRYRUN, [
+        "repro_torch.examples.multipod_dryrun", *example, "--device",
+        "cpu"])))
     return procs
+
+
+def _tail(path, n: int = 3000) -> str:
+    path = pathlib.Path(path)
+    return path.read_text()[-n:] if path.exists() else ""
 
 
 def _stop(procs) -> None:
@@ -3204,12 +3227,15 @@ def _finish_dryruns(procs, outdir, t0) -> list:
     ``"ok": true`` fails.  Prints each cell's peak bytes a device, FLOPs,
     bytes, collectives by kind, dominant term and sharding fallbacks."""
     recs = []
-    for (arch, shape), p in procs:
+    for key, p in procs:
+        if key == EX_DRYRUN:
+            continue
+        arch, shape = key
         left = max(1.0, DIST_DRYRUN_TIMEOUT_S - (time.perf_counter() - t0))
-        out, _ = p.communicate(timeout=left)
-        if p.returncode != 0:
+        if p.wait(timeout=left) != 0:
             raise AssertionError(f"dryrun {arch} {shape}: exit "
-                                 f"{p.returncode}:\n{out[-3000:]}")
+                                 f"{p.returncode}:\n"
+                                 f"{_tail(pathlib.Path(outdir) / f'{arch}__{shape}.err')}")
         rec = json.loads((pathlib.Path(outdir)
                           / f"{arch}__{shape}__single.json").read_text())
         if rec.get("ok") is not True:
@@ -3543,38 +3569,37 @@ def phase_dist_serve(cfg, params, prompts, mesh, dev) -> tuple:
     return launches, worst
 
 
-def phase_distributed(timed, get_config, transformer, phase10, dev) -> int:
+def phase_distributed(timed, get_config, transformer, phase10, host,
+                      dev) -> int:
     """Phase 11: the distributed layer.  On a one-rank mesh of the card
     the sharded train step (olmo-1b, phase 10's shape) runs against its
-    unsharded twin and the roofline; then the dry run of two production
-    cells starts on the host in subprocesses while the sharded serve steps
-    (qwen2-7b, phase 8's prompts) run on the card; the dry run is waited
-    for last.  Returns the flash launches of the sharded prefills."""
+    unsharded twin and the roofline; then the host's dry runs start in
+    subprocesses (:func:`_start_dryruns`, appended to ``host``, which the
+    caller stops) while the sharded serve steps (qwen2-7b, phase 8's
+    prompts) run on the card; the two cells are waited for last, the
+    example by phase 12.  Returns the flash launches of the sharded
+    prefills."""
     import torch.distributed as dist
     t0 = time.perf_counter()
     outdir = ROOT / "build" / "dryrun"
-    procs = []
+    mesh = _one_rank_mesh(dev)
     try:
-        mesh = _one_rank_mesh(dev)
-        try:
-            seq_len, batch = TRAIN_SHAPE
-            timed("dist-train", phase_dist_train, get_config(TRAIN_ARCH),
-                  seq_len, batch, mesh, dev, phase10)
-            # the dry run's host work starts after the timed train steps,
-            # which are host-bound
-            procs = _start_dryruns(outdir)
-            _fresh_card(dev)
-            cfg = get_config(LM_ARCH)
-            params = transformer.init_lm(
-                cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
-            launches, _ = timed("dist-serve", phase_dist_serve, cfg, params,
-                                _lm_prompts(cfg.vocab_size), mesh, dev)
-            del params
-        finally:
-            dist.destroy_process_group()
-        timed("dist-dryrun", _finish_dryruns, procs, outdir, t0)
+        seq_len, batch = TRAIN_SHAPE
+        timed("dist-train", phase_dist_train, get_config(TRAIN_ARCH),
+              seq_len, batch, mesh, dev, phase10)
+        # the dry runs' host work starts after the timed train steps,
+        # which are host-bound
+        host.extend(_start_dryruns(outdir))
+        _fresh_card(dev)
+        cfg = get_config(LM_ARCH)
+        params = transformer.init_lm(
+            cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+        launches, _ = timed("dist-serve", phase_dist_serve, cfg, params,
+                            _lm_prompts(cfg.vocab_size), mesh, dev)
+        del params
     finally:
-        _stop(procs)
+        dist.destroy_process_group()
+    timed("dist-dryrun", _finish_dryruns, host, outdir, t0)
     wall = time.perf_counter() - t0
     if wall > DIST_PHASE_LIMIT_S:
         raise AssertionError(f"distributed: phase 11 took {wall:.1f} s, "
@@ -3594,7 +3619,7 @@ EX_TRAIN_STEPS = 300  # the reference example's run
 EX_TRAIN_SHAPE = (8, 256)  # (batch, seq) of the reference example's run
 EX_CYCLES = {"add": 9, "multiply": 102}  # n + 1 and n^2 + 5n - 2 at n = 8
 EX_SIMULATOR = ("4.72", "18.3", "7.7")  # ms, x over CPU, x over GPU (paper)
-EX_DRYRUN_TIMEOUT_S = 900  # from its start before phase 10 (170 s alone)
+EX_DRYRUN_TIMEOUT_S = 400  # from phase 11's start (the run: 172.5 s)
 
 
 def phase_ex_quickstart(quickstart, bsm, qm, dev) -> dict:
@@ -3650,14 +3675,17 @@ def phase_ex_quickstart(quickstart, bsm, qm, dev) -> dict:
     return launches
 
 
-def phase_ex_serve_nc(serve_quantized, inception, backends, bsm, dev) -> dict:
+def phase_ex_serve_nc(serve_quantized, inception, backends, ops, bsm,
+                      dev) -> dict:
     """``serve_quantized --neural-cache --fault-profile EX_FAULTS
     --compressed --warmup-replan`` on the card: the reduced Inception's 6
     images through ``NCServingEngine(max_batch=4)``, every request's logits
     byte-identical to a standalone ``nc_forward`` (the example itself
-    holds request 0's), ``detected == corrupt_attempts``, none failed or
-    degraded, the ``gemm`` backend native and the bit-serial kernel
-    launched.  Returns the launches and the wall."""
+    holds request 0's) and to a standalone one with the kernels swapped
+    for their plain versions (as phase 7's plain forward), ``detected ==
+    corrupt_attempts``, none failed or degraded, the ``gemm`` backend
+    native and the bit-serial kernel launched.  Returns the launches and
+    the wall."""
     cfg = serve_quantized.nc_config()
     params = inception.init_params(torch.Generator().manual_seed(0),
                                    config=cfg, device=dev)
@@ -3675,46 +3703,85 @@ def phase_ex_serve_nc(serve_quantized, inception, backends, bsm, dev) -> dict:
                              f"{EX_NC_REQUESTS}, {s['failed']} failed")
     if any(r.degraded for r in res["done"]):
         raise AssertionError("serve-nc: a batch left the emulation")
-    if fs["detected"] != fs["corrupt_attempts"] or fs["injected"] == 0:
-        raise AssertionError(f"serve-nc: fault ledger {fs}")
-    if gemm["native"] == 0 or launches == 0:
-        raise AssertionError(f"serve-nc: gemm dispatch {gemm}, launches "
-                             f"{launches}")
     for r in res["done"]:
         alone, _ = inception.nc_forward(params, images[r.rid], config=cfg,
                                         device=dev)
         if not bits_equal(r.logits, alone):
             raise AssertionError(f"serve-nc: request {r.rid}'s logits "
                                  f"differ from a standalone nc_forward")
+    real, before = ops.bitserial_matmul_exact, bsm.bitserial_matmul.launches
+    ops.bitserial_matmul_exact = _exact_plain(bsm)
+    try:
+        plain = {r.rid: inception.nc_forward(params, images[r.rid],
+                                             config=cfg, device=dev)[0]
+                 for r in res["done"]}
+    finally:
+        ops.bitserial_matmul_exact = real
+    if bsm.bitserial_matmul.launches != before:
+        raise AssertionError("serve-nc: the plain forwards launched the "
+                             "kernel")
+    for r in res["done"]:
+        if not bits_equal(r.logits, plain[r.rid]):
+            raise AssertionError(f"serve-nc: request {r.rid}'s logits "
+                                 f"differ from the plain versions' "
+                                 f"standalone nc_forward")
+    if fs["detected"] != fs["corrupt_attempts"] or fs["injected"] == 0:
+        raise AssertionError(f"serve-nc: fault ledger {fs}")
+    if gemm["native"] == 0 or launches == 0:
+        raise AssertionError(f"serve-nc: gemm dispatch {gemm}, launches "
+                             f"{launches}")
     log(f"[ex-serve-nc] {cfg.name}: {EX_NC_REQUESTS} images in "
         f"{res['wall_s']:.3f} s ({EX_NC_REQUESTS / res['wall_s']:.2f} "
         f"images/s), batches {s['batch_histogram']}; faults {fs['injected']} "
         f"injected, {fs['detected']} detected of {fs['corrupt_attempts']} "
         f"corrupt passes; every request's logits byte-identical to a "
-        f"standalone nc_forward; gemm dispatch {gemm}; bitserial_matmul "
-        f"launches {launches}")
+        f"standalone nc_forward through the kernel and to one through the "
+        f"plain versions; gemm dispatch {gemm}; bitserial_matmul launches "
+        f"{launches}")
     return {"bitserial_matmul": launches, "wall_s": res["wall_s"]}
 
 
-def phase_ex_serve_lm(serve_quantized, transformer, fa, dev) -> dict:
+def phase_ex_serve_lm(serve_quantized, transformer, layers, fa, dev) -> dict:
     """The LM demo on the card: fp32, W8 and W4 reduced qwen2-7b each
     serving the 8 prompts of 24 tokens, 8 tokens each (64 a run), every
     prefill's attention through the flash kernel (4 layers x 8 prompts x
-    3 runs); then each fp32 request decoded greedily by a batch-1 loop fed
-    the served tokens: each served token equal to the loop's pick unless
-    that pick's top-2 margin is below 2 * LM_LOGIT_TOL (phase 8's rule).
-    Returns the launches and each run's tok/s."""
+    3 runs), each served attention call's output held against the plain
+    version on its q, k, v (captured in the run, compared after it); then
+    each fp32 request decoded greedily by a batch-1 loop fed the served
+    tokens: each served token equal to the loop's pick unless that pick's
+    top-2 margin is below 2 * LM_LOGIT_TOL (phase 8's rule).  Returns the
+    launches, each run's tok/s and the largest difference of a served
+    attention call from the plain version."""
     cfg = serve_quantized.lm_config()
     params = transformer.init_lm(
         cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     prompts = serve_quantized.lm_prompts(cfg)
+    real_fa, served = layers.flash_attention, []
+
+    def captured(q, k, v, *, causal=True, window=0, **kw):
+        out = real_fa(q, k, v, causal=causal, window=window, **kw)
+        if window == 0:  # the calls the kernel takes
+            served.append((q.clone(), k.clone(), v.clone(), causal,
+                           out.clone()))
+        return out
+
     fa.flash_attention.launches = 0
-    runs = serve_quantized.main_lm(cfg, params, prompts, dev)
+    layers.flash_attention = captured
+    try:
+        runs = serve_quantized.main_lm(cfg, params, prompts, dev)
+    finally:
+        layers.flash_attention = real_fa
     launches = fa.flash_attention.launches
     want = _full_attention_layers(transformer, cfg) * len(prompts) * len(runs)
-    if launches != want:
+    if launches != want or len(served) != want:
         raise AssertionError(f"serve-lm: flash_attention launched {launches} "
-                             f"times, want {want}")
+                             f"times, {len(served)} calls captured, want "
+                             f"{want}")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (q, k, v, causal, out) in enumerate(served):
+        _flash_compare(fa, q, k, v, causal, worst,
+                       f"served prefill call {i}", got=out)
+    del served
     total = len(prompts) * serve_quantized.LM_MAX_TOKENS
     if any(r["tokens"] != total for r in runs.values()):
         raise AssertionError(f"serve-lm: tokens "
@@ -3742,10 +3809,13 @@ def phase_ex_serve_lm(serve_quantized, transformer, fa, dev) -> dict:
                     + (f", greedy agreement {r['agreement']:.3f}"
                        if "agreement" in r else "") + ")"
                     for tag, r in runs.items())
-        + f"; fp32 tokens equal to a batch-1 loop's picks ({near} near-ties "
+        + f"; each served attention call within f32 rtol=atol={FA_F32_TOL} "
+        f"of the plain version (max abs diff {worst[torch.float32]:.3g}); "
+        f"fp32 tokens equal to a batch-1 loop's picks ({near} near-ties "
         f"under {2 * LM_LOGIT_TOL}); flash_attention launches {launches}")
     return {"flash_attention": launches,
-            "tok_s": {t: r["tok_s"] for t, r in runs.items()}}
+            "tok_s": {t: r["tok_s"] for t, r in runs.items()},
+            "worst": max(worst.values())}
 
 
 def phase_ex_train(train_lm, fa, cfg, steps, batch, seq, workdir, dev):
@@ -3777,40 +3847,20 @@ def phase_ex_train(train_lm, fa, cfg, steps, batch, seq, workdir, dev):
     return res
 
 
-def _start_ex_dryrun(outdir, args=()) -> tuple:
-    """``python -m repro_torch.examples.multipod_dryrun`` (default: qwen2-7b
-    x train_4k on the (2, 16, 16) mesh of a fake 512-rank world) in a host
-    subprocess, its output to files under ``outdir``; returns ``(process,
-    stdout path, start time)``.  The example dispatches on ``meta`` tensors (about 170 s
-    of DTensor's placement planning on the card's host), so it starts
-    before phase 10 and phase 12 waits for it; a fake world cannot share a
-    process with phase 11's NCCL world, so it runs on the host with the
-    card hidden, as phase 11's dry-run cells do."""
-    import os
-    outdir = pathlib.Path(outdir)
-    outdir.mkdir(parents=True, exist_ok=True)
-    out = outdir / "ex_multipod.out"
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
-    with open(out, "w") as fo, open(outdir / "ex_multipod.err", "w") as fe:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.examples.multipod_dryrun",
-             *args, "--device", "cpu"], env=env, cwd=ROOT, stdout=fo,
-            stderr=fe)
-    return proc, out, time.perf_counter()
-
-
-def phase_ex_dryrun(proc, out, t_start: float) -> dict:
-    """Wait for :func:`_start_ex_dryrun`'s example (at most
-    EX_DRYRUN_TIMEOUT_S from ``t_start``): exit 0, the record printed as
-    JSON with ``peak_bytes_per_device``, ``fits_hbm`` and the roofline's
+def phase_ex_dryrun(host, outdir, t_start: float) -> dict:
+    """Wait for the ``multipod_dryrun`` example among ``host``'s dry runs
+    (:func:`_start_dryruns` into ``outdir``, at most EX_DRYRUN_TIMEOUT_S
+    from ``t_start``, phase 11's start): exit 0, the record printed as JSON with
+    ``peak_bytes_per_device``, ``fits_hbm`` and the roofline's
     ``dominant`` term, and the example's closing lines, printed here."""
+    proc = dict(host)[EX_DRYRUN]
     left = max(1.0, EX_DRYRUN_TIMEOUT_S - (time.perf_counter() - t_start))
     code = proc.wait(timeout=left)
-    text = pathlib.Path(out).read_text()
+    out = pathlib.Path(outdir) / f"{EX_DRYRUN}.out"
     if code != 0:
-        err = pathlib.Path(out).with_suffix(".err").read_text()
-        raise AssertionError(f"multipod_dryrun: exit {code}:\n{err[-3000:]}")
+        raise AssertionError(f"multipod_dryrun: exit {code}:\n"
+                             f"{_tail(out.with_suffix('.err'))}")
+    text = out.read_text()
     body, tail = text.split("\n\n[", 1)
     rec = json.loads(body)
     for key in ("peak_bytes_per_device", "fits_hbm"):
@@ -3823,32 +3873,34 @@ def phase_ex_dryrun(proc, out, t_start: float) -> dict:
         log(f"[ex-dryrun] {line}")
     log(f"[ex-dryrun] {rec['arch']} x {rec['shape']} @ {rec['mesh']} "
         f"({rec['chips']} ranks, fake world, meta tensors): built and "
-        f"dispatched in {rec['compile_s']} s on the host (started before "
-        f"phase 10), peak {rec['peak_bytes_per_device'] / 2 ** 30:.2f} GiB "
+        f"dispatched in {rec['compile_s']} s on the host (started in "
+        f"phase 11), peak {rec['peak_bytes_per_device'] / 2 ** 30:.2f} GiB "
         f"a device, fits 80 GiB {rec['fits_hbm']}, dominant "
         f"{rec['roofline']['dominant']}")
     return rec
 
 
-def phase_examples(timed, transformer, inception, backends, bsm, qm, fa,
-                   card, ex_dryrun, dev) -> dict:
+def phase_examples(timed, transformer, inception, backends, layers, ops,
+                   bsm, qm, fa, card, host, t11, dev) -> tuple:
     """Phase 12: three examples of ``repro_torch.examples`` in this process
     on the card, through their functions, at the reference examples'
-    sizes; then the wait for ``multipod_dryrun`` (``ex_dryrun``, from
-    :func:`_start_ex_dryrun`).  Returns the kernel launches by kernel."""
+    sizes; then the wait for ``multipod_dryrun`` (started by phase 11
+    among ``host``'s dry runs; ``t11`` is phase 11's start).  Returns the
+    kernel launches by kernel and the largest difference of a served
+    attention call from the plain version."""
     from repro_torch.examples import quickstart, serve_quantized, train_lm
     t0 = time.perf_counter()
     _fresh_card(dev)
     q = timed("ex-quickstart", phase_ex_quickstart, quickstart, bsm, qm, dev)
     nc = timed("ex-serve-nc", phase_ex_serve_nc, serve_quantized, inception,
-               backends, bsm, dev)
+               backends, ops, bsm, dev)
     lm = timed("ex-serve-lm", phase_ex_serve_lm, serve_quantized,
-               transformer, fa, dev)
+               transformer, layers, fa, dev)
     _fresh_card(dev)
     tr = timed("ex-train", phase_ex_train, train_lm, fa,
                train_lm.example_config(), EX_TRAIN_STEPS, *EX_TRAIN_SHAPE,
                ROOT / "build" / "train_lm-smoke", dev)
-    timed("ex-dryrun", phase_ex_dryrun, *ex_dryrun)
+    timed("ex-dryrun", phase_ex_dryrun, host, ROOT / "build" / "dryrun", t11)
     wall = time.perf_counter() - t0
     launches = {"bitserial_matmul": q["bitserial_matmul"]
                 + nc["bitserial_matmul"],
@@ -3859,7 +3911,7 @@ def phase_examples(timed, transformer, inception, backends, bsm, qm, fa,
         f"{ {t: round(v, 1) for t, v in lm['tok_s'].items()} }; train_lm "
         f"{tr['step_s']:.4f} s a step, {tr['tok_s']:.0f} tokens/s; kernel "
         f"launches {launches}")
-    return launches
+    return launches, lm["worst"]
 
 
 def phase_registers(cuda_build):
@@ -4012,18 +4064,19 @@ def main() -> int:
     log(f"[lm-families] flash_attention launches by served model: "
         f"{fa_by_path}")
     launches_fa = sum(fa_by_path.values())
-    ex_dryrun = _start_ex_dryrun(ROOT / "build" / "dryrun")
+    trained = phase_training(timed, get_config, transformer,
+                             ROOT / "build" / "train-ckpt", dev)
+    host, t11 = [], time.perf_counter()
     try:
-        trained = phase_training(timed, get_config, transformer,
-                                 ROOT / "build" / "train-ckpt", dev)
         fa_by_path[f"{LM_ARCH} sharded prefill"] = timed(
             "distributed", phase_distributed, timed, get_config,
-            transformer, trained, dev)
-        examples = timed("examples", phase_examples, timed, transformer,
-                         inception, backends, bsm, qm, fa, card, ex_dryrun,
-                         dev)
+            transformer, trained, host, dev)
+        examples, worst_ex = timed(
+            "examples", phase_examples, timed, transformer, inception,
+            backends, layers, ops, bsm, qm, fa, card, host, t11, dev)
     finally:
-        _stop([(None, ex_dryrun[0])])
+        _stop(host)
+    worst_fa = max(worst_fa, worst_ex)
     fa_by_path["examples"] = examples["flash_attention"]
     launches_fa = sum(fa_by_path.values())
     log(f"[examples] launches added to the kernels line: {examples}; "

@@ -325,3 +325,24 @@ def test_capability_envelope(monkeypatch):
         assert torch.equal(got, want)
         assert tbackends.dispatch_stats()["gemm"] == {
             "native": native, "fallback": 1 - native}
+
+
+def test_gemm_reads_its_nibble_route_flag(monkeypatch):
+    """``_exact_gemm`` routes 4-plane dots by the registered ``w4a4`` flag:
+    with it cleared, the same dot reaches the 8-bit kernel's entry with
+    byte activations, and its values still equal the walk's."""
+    calls = []
+    real = tops.bitserial_matmul_exact
+
+    def spy(x_q, planes, *, n_bits, w4a4=False):
+        calls.append((w4a4, tuple(x_q.shape)))
+        return real(x_q, planes, n_bits=n_bits, w4a4=w4a4)
+
+    monkeypatch.setattr(tops, "bitserial_matmul_exact", spy)
+    monkeypatch.setitem(tbackends._REGISTRY, "gemm", dataclasses.replace(
+        tbackends.get_backend("gemm"), w4a4=False))
+    _, (tx, tw) = _grids(4, 4, 37, 5)
+    want, _ = tbs.packed_dot_words(tx, tw, K=37, acc_bits=32, engine="walk")
+    got, _ = tbs.packed_dot_words(tx, tw, K=37, acc_bits=32, engine="gemm")
+    assert torch.equal(got, want)
+    assert [(w4a4, shape[1]) for w4a4, shape in calls] == [(False, 37)]
