@@ -213,7 +213,30 @@ results go to lines before the last; each phase prints its wall):
     11 after the timed train steps, and its record must carry peak bytes,
     ``fits_hbm`` and the dominant term; each example's wall and tok/s or
     step/s printed beside the card;
-13. times on the card: each kernel and one PyTorch call at its shapes
+13. ``paper``: the paper's evaluation through ``repro_torch.benchmarks``:
+    ``paper-repro``, the ``paper_repro`` example in this process (its 65
+    lines printed; the headline rows, Fig 13's 4722.8920 us, Fig 15's
+    18.3x / 7.7x, Fig 16's 12.6x / 2.2x and Table IV's 4.72 / 4.20 / 3.81
+    ms, held to the reference's text; modeled Xeon-cache times, not the
+    card's); ``lm-nc``, one ``lm_neural_cache`` row per registered arch;
+    ``sched``, ``sched_breakdown`` with its two measured inputs taken on
+    the card (the calibration wall, the batch-4 dense forward of the
+    50%-pruned ``reduced_config()``, min of 3 in turns with the sparse
+    schedule's, logits byte-identical; the serial and overlapped batch-4
+    walls of the reduced stem on the 1/4-scale array, 5 a side in turns)
+    printed beside the card, every gate of the reference held (the
+    measured pair by the in-turns rule of ``overlap_gate``) and the
+    emulation SLO rows printed; ``replay``, ``traffic_replay.run_quick()``
+    with its router and accounting gates, then the real fleet at full
+    width: three ``NCServingEngine`` sockets (``socket-35MB``,
+    ``scaled(7)``, ``scaled(4)``) behind the latency router serving phase
+    4's 4 images with phase 4's weights (drawn again from its seed), every
+    routed logit row byte-identical to phase 4's served logits, which one
+    batch-4 full-width ``nc_forward`` with the kernels swapped for their
+    plain versions must reproduce byte for byte (phase 7 runs only the
+    first B images); kernel launches printed per socket and added to the
+    kernels line with the ``sched`` forwards';
+14. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
     ``torch._int_mm`` plus the epilogue for quant_matmul,
     ``scaled_dot_product_attention`` on KV repeated to H heads for
@@ -226,10 +249,11 @@ results go to lines before the last; each phase prints its wall):
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; then each kernel's registers a thread and spill bytes
     from its build report;
-14. one JSON line listing the four kernels (launches summed over every
+15. one JSON line listing the four kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs,
-    the 8-bit ``nc_dot`` and the examples' quickstart and Neural Cache
-    serving for ``bitserial_matmul``, the 4-bit path and the 4-bit
+    the 8-bit ``nc_dot``, the examples' quickstart and Neural Cache
+    serving and phase 13's forwards and real fleet for
+    ``bitserial_matmul``, the 4-bit path and the 4-bit
     ``nc_dot`` for ``bitserial_matmul_a4``, the PTQ and the quickstart for
     ``quant_matmul``, the seven served LMs, the two int8-cache runs, the
     sharded prefills and the LM demo for ``flash_attention``), then the card
@@ -239,8 +263,10 @@ results go to lines before the last; each phase prints its wall):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import pathlib
@@ -3914,6 +3940,171 @@ def phase_examples(timed, transformer, inception, backends, layers, ops,
     return launches, lm["worst"]
 
 
+# ---------------------------------------------------------------------------
+# paper: the paper's evaluation (phase 13)
+# ---------------------------------------------------------------------------
+PAPER_LINES = 65  # the paper_repro example's lines, the reference's count
+# headline rows of the example, as the reference prints them (modeled
+# Xeon-cache times and the paper's baselines, not the card's)
+PAPER_HEADLINES = (
+    "  fig13/TOTAL,4722.8920,sum over layers",
+    "  fig15/speedup_vs_cpu,0.0000,18.3x (paper 18.3x)",
+    "  fig15/speedup_vs_gpu,0.0000,7.7x (paper 7.7x)",
+    "  fig16/vs_cpu,0.0000,12.6x (paper 12.4x)",
+    "  fig16/vs_gpu,0.0000,2.2x (paper 2.2x)",
+    "  tab4/35MB,4722.8920,4.72 ms (paper 4.72)",
+    "  tab4/45MB,4203.4117,4.20 ms (paper 4.12)",
+    "  tab4/60MB,3811.1384,3.81 ms (paper 3.79)",
+)
+# sched_breakdown rows printed (the rest are per block)
+SCHED_PRINTED = ("sched13/TOTAL", "sched13/throughput_shape",
+                 "sparsity/TOTAL", "compression/", "overlap/TOTAL",
+                 "overlap/measured_b4", "slo/calibration", "slo/batch_for")
+
+
+def _inception_params(inception, cfg, dev):
+    """Phase 4's seeded Inception weights (drawn on the CPU, so a seed
+    gives the same weights on every device)."""
+    return inception.init_params(torch.Generator().manual_seed(0),
+                                 config=cfg, device=dev)
+
+
+def phase_paper_repro(paper_repro, dev) -> list:
+    """The ``paper_repro`` example's command line in this process: its
+    lines printed, their count and the headline rows held."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = paper_repro.main(["--device", str(dev)])
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        log(f"[paper-repro] {line}")
+    if rc != 0 or len(lines) != PAPER_LINES:
+        raise AssertionError(f"paper_repro: exit {rc}, {len(lines)} lines, "
+                             f"want 0 and {PAPER_LINES}")
+    missing = [h for h in PAPER_HEADLINES if h not in lines]
+    if missing:
+        raise AssertionError(f"paper_repro: headline rows off the "
+                             f"reference's: {missing}")
+    return lines
+
+
+def phase_lm_nc(lm_neural_cache, registry) -> list:
+    """One modeled ``lm_neural_cache`` row per registered arch."""
+    rows = lm_neural_cache.run()
+    for r in rows:
+        log(f"[lm-nc] {r}")
+    names = [r.split(",", 1)[0] for r in rows]
+    if names != [f"lm_nc/{a}" for a in registry]:
+        raise AssertionError(f"lm_nc rows {names}")
+    return rows
+
+
+def phase_sched(sched_breakdown, bsm, card, dev) -> int:
+    """``sched_breakdown`` with its two measured inputs taken on the card
+    (printed beside it) and every gate held; returns the bit-serial
+    kernel's launches in the measuring forwards."""
+    bsm.bitserial_matmul.launches = 0
+    cal = sched_breakdown.measure_calibration(dev)
+    serial, overlapped = sched_breakdown.measure_overlap(dev)
+    launches = bsm.bitserial_matmul.launches
+    ws, wo, spread = sched_breakdown.overlap_gate(serial, overlapped)
+    log(f"[sched] on {card}: calibration wall {cal:.4f} s (batch-4 "
+        f"reduced_config(), 50% of filters pruned, dense; min of "
+        f"{sched_breakdown.CALIBRATION_RUNS} in turns with the sparse "
+        f"schedule's)")
+    log(f"[sched] on {card}: overlap pair (batch-4 reduced stem, 1/4-scale "
+        f"array, in turns) serial {[round(w, 4) for w in serial]} s, "
+        f"overlapped {[round(w, 4) for w in overlapped]} s; medians "
+        f"{ws:.4f} / {wo:.4f} s, spread {spread:.4f} s; bitserial_matmul "
+        f"launches {launches}")
+    rows = sched_breakdown.run(device=dev, calibration_wall_s=cal,
+                               overlap_walls=(serial, overlapped))
+    for r in rows:
+        if r.startswith(SCHED_PRINTED):
+            log(f"[sched] {r}")
+    emulated = [r for r in rows if r.split(",", 1)[0].endswith("_emulated")]
+    if len(emulated) != len(sched_breakdown.SLO_BUDGETS_EMU_S):
+        raise AssertionError(f"sched: {len(emulated)} emulation SLO rows")
+    if launches == 0:
+        raise AssertionError("sched: the measuring forwards launched no "
+                             "kernel")
+    return launches
+
+
+def phase_replay(traffic_replay, serve, inception, ops, bsm, params,
+                 images, served, dev, cfg) -> int:
+    """``run_quick()``, then the real fleet at ``cfg``'s width on phase 4's
+    images and weights: every routed logit row byte-identical to phase 4's
+    ``served`` (by ``_real_fleet_bitidentity``), and ``served`` reproduced
+    byte for byte by one forward of all the images with the kernels swapped
+    for their plain versions.  Returns the fleet's bit-serial kernel
+    launches."""
+    for r in traffic_replay.run_quick():
+        log(f"[replay] {r}")
+    per_socket: dict = {}
+    real = serve.NCServingEngine._forward
+
+    def forward(engine, *a, **k):
+        n = bsm.bitserial_matmul.launches
+        out = real(engine, *a, **k)
+        per_socket[engine.name] = (per_socket.get(engine.name, 0)
+                                   + bsm.bitserial_matmul.launches - n)
+        return out
+
+    serve.NCServingEngine._forward = forward
+    bsm.bitserial_matmul.launches = 0
+    try:
+        line = traffic_replay._real_fleet_bitidentity(
+            params, cfg, images, served, device=dev)
+    finally:
+        serve.NCServingEngine._forward = real
+    launches = bsm.bitserial_matmul.launches
+    log(f"[replay] {line}; config {cfg.name}; bitserial_matmul launches by "
+        f"socket {per_socket} (total {launches})")
+    if launches == 0 or sum(per_socket.values()) != launches:
+        raise AssertionError(f"replay: fleet launches {per_socket}, "
+                             f"{launches}")
+    x = torch.from_numpy(np.stack(images)).to(dev)
+    saved = ops.bitserial_matmul_exact
+    ops.bitserial_matmul_exact = _exact_plain(bsm)
+    try:
+        plain, _ = inception.nc_forward(params, x, config=cfg, device=dev)
+    finally:
+        ops.bitserial_matmul_exact = saved
+    if bsm.bitserial_matmul.launches != launches:
+        raise AssertionError("replay: the plain forward launched the kernel")
+    for i in range(len(images)):
+        if not bits_equal(plain[i], served[i]):
+            raise AssertionError(f"replay: image {i}: phase 4's served "
+                                 f"logits differ from the plain versions' "
+                                 f"forward")
+    log(f"[replay] phase 4's {len(images)} served logit rows byte-identical "
+        f"to one batch-{len(images)} forward through the plain versions")
+    return launches
+
+
+def phase_paper(timed, inception, serve, ops, bsm, card, images, served,
+                dev, cfg) -> int:
+    """Phase 13: the paper's evaluation on the port.  Returns the
+    bit-serial kernel's launches (the measuring forwards and the real
+    fleet)."""
+    from repro_torch.benchmarks import (lm_neural_cache, sched_breakdown,
+                                        traffic_replay)
+    from repro_torch.configs import REGISTRY
+    from repro_torch.examples import paper_repro
+    t0 = time.perf_counter()
+    _fresh_card(dev)
+    timed("paper-repro", phase_paper_repro, paper_repro, dev)
+    timed("lm-nc", phase_lm_nc, lm_neural_cache, REGISTRY)
+    sched = timed("sched", phase_sched, sched_breakdown, bsm, card, dev)
+    params = _inception_params(inception, cfg, dev)
+    fleet = timed("replay", phase_replay, traffic_replay, serve, inception,
+                  ops, bsm, params, images, served, dev, cfg)
+    log(f"[paper] on {card}: phase wall {time.perf_counter() - t0:.1f} s; "
+        f"bitserial_matmul launches: sched {sched}, real fleet {fleet}")
+    return sched + fleet
+
+
 def phase_registers(cuda_build):
     """Each kernel's registers a thread and spill bytes over its entry
     functions (template instantiations), from the build's ``-Xptxas -v``
@@ -4001,8 +4192,7 @@ def main() -> int:
     worst_fa = max(worst_fa, *timed("kernel-fa-families",
                                     phase_flash_family_shapes, fa, dev))
     cfg = inception.FULL
-    params = inception.init_params(torch.Generator().manual_seed(0),
-                                   config=cfg, device=dev)
+    params = _inception_params(inception, cfg, dev)
     rng = np.random.default_rng(0)
     images = [rng.random((cfg.img, cfg.img, 3), dtype=np.float32)
               for _ in range(4)]
@@ -4036,7 +4226,7 @@ def main() -> int:
         f"{dot8}; bitserial_matmul_a4: 4-bit {launches_a4}, nc_dot {dot4}")
     launches += launches_chunk + launches_fleet + dot8
     launches_a4 += dot4
-    del params, wpack, served, x
+    del params, wpack, x  # phase 13 draws the weights again
     lm_cfg = get_config(LM_ARCH)
     lm_params = timed("lm-init", lambda: transformer.init_lm(
         lm_cfg, torch.Generator(device=dev).manual_seed(0), device=dev))
@@ -4085,6 +4275,12 @@ def main() -> int:
         f"{launches_fa - examples['flash_attention']}")
     launches += examples["bitserial_matmul"]
     launches_qm += examples["quant_matmul"]
+    launches_paper = timed("paper", phase_paper, timed, inception, serve,
+                           ops, bsm, card, images, served, dev, cfg)
+    log(f"[paper] bitserial_matmul launches added to the kernels line: "
+        f"{launches_paper}; before them {launches}")
+    launches += launches_paper
+    del served
     rows = timed("times", phase_times, bsm, dev)
     rows_a4 = timed("times-a4", phase_times_a4, bsm, dev)
     rows_qm = timed("times-qm", phase_times_quant, qm, dev)

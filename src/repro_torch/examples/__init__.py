@@ -1,7 +1,8 @@
 """The reference's example entry points on the port.
 
 One module per example of the repository's ``examples/`` folder:
-``quickstart``, ``serve_quantized``, ``train_lm`` and ``multipod_dryrun``.
+``quickstart``, ``serve_quantized``, ``train_lm``, ``multipod_dryrun`` and
+``paper_repro``.
 Each runs as ``python -m repro_torch.examples.<name>``, takes the
 reference example's flags plus ``--device`` (default ``cuda``) and prints
 the reference's lines under the same labels.  Importing a module touches

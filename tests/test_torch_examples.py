@@ -24,6 +24,7 @@ reference's ``examples/``, on the CPU.
 * ``multipod_dryrun`` on a reduced cell (a (2, 2) mesh of a fake world):
   the record printed as JSON, the roofline lines, the H100's 80 GiB, and
   no "16GB".
+* ``paper_repro``: its lines are held by ``test_torch_paper.py``.
 * each module's CLI at these sizes exits 0 with ``--device cpu``, and
   ``--device cuda`` raises without a GPU.
 """
@@ -55,6 +56,7 @@ from repro_torch.configs import get_config as tget
 from repro_torch.configs import reduced_config as treduced
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.examples import multipod_dryrun as tdry
+from repro_torch.examples import paper_repro as tpaper
 from repro_torch.examples import quickstart as tquick
 from repro_torch.examples import serve_quantized as tserveq
 from repro_torch.examples import train_lm as ttrain
@@ -306,6 +308,7 @@ CLI = {
                            "--warmup-replan"],
     "train_lm": ["--reduced", "--batch", "4", "--seq", "32"],
     "multipod_dryrun": ["olmo-1b", "train_4k", "--reduced"],
+    "paper_repro": [],
 }
 
 
@@ -323,7 +326,7 @@ def test_cli_runs_on_the_cpu(name, tmp_path):
     assert r.stdout.strip()
 
 
-@pytest.mark.parametrize("module", [tquick, tserveq, ttrain, tdry],
+@pytest.mark.parametrize("module", [tquick, tserveq, ttrain, tdry, tpaper],
                          ids=lambda m: m.__name__.rsplit(".", 1)[-1])
 def test_cuda_without_gpu_raises(module):
     if torch.cuda.is_available():

@@ -6,11 +6,18 @@ reference's ``__all__`` lists (a module without ``__all__``: every public
 function, class and constant it defines, and for a config module what it
 re-exports from the package), except the allow-listed JAX or
 TPU machinery below, each with the reason it has no counterpart.  A later
-gap between the packages fails here.  No file of ``src/repro_torch/`` and
-not ``chip_smoke.py`` may import ``jax`` or the reference package.
+gap between the packages fails here.  The same holds for the repository's
+paper evaluation: every module of ``benchmarks/`` but the timing harness
+(``kernel_bench``, ``run``) against ``repro_torch.benchmarks``, and
+``examples/paper_repro.py`` against ``repro_torch.examples.paper_repro``.
+No file of ``src/repro_torch/`` and not ``chip_smoke.py`` may import
+``jax``, the reference package or the repository's ``benchmarks`` and
+``examples`` (which import JAX).
 """
 import ast
 import importlib
+import importlib.util
+import sys
 import pathlib
 import types
 
@@ -68,6 +75,30 @@ NO_NAME = {
     "repro.launch.steps": {
         "build_jitted_step": "builds a jax.jit step; its counterpart is "
                              "build_sharded_step",
+    },
+}
+
+
+# the repository's benchmark modules with no counterpart: the timing
+# harness, which the benchmark of the port will replace
+NO_BENCHMARK = ("kernel_bench", "run")
+
+# names with no counterpart, by benchmark module
+NO_BENCHMARK_NAME = {
+    "sched_breakdown": {
+        "load_bench_baseline": "reads the JAX package's CPU timings from "
+                               "BENCH_kernels.json; the port measures its "
+                               "inputs on the device (measure_calibration, "
+                               "measure_overlap)",
+        "BenchBaselineError": "that file's missing or stale schema",
+        "REQUIRED_OPS": "the records that file must hold",
+        "OVERLAP_OPS": "the names of that file's serial/overlapped pair; "
+                       "the port measures the pair (measure_overlap)",
+    },
+    "traffic_replay": {
+        "RECORDS": "the timing harness's record sink (benchmarks/run.py, "
+                   "not ported)",
+        "RETIMERS": "the timing harness's re-measure hooks",
     },
 }
 
@@ -131,6 +162,46 @@ def test_allow_list_names_reference_modules():
         assert all(hasattr(ref, k) for k in allowed), name
 
 
+def _benchmark_names():
+    return sorted(f.stem for f in (ROOT / "benchmarks").glob("*.py")
+                  if f.stem != "__init__" and f.stem not in NO_BENCHMARK)
+
+
+def _reference_benchmark(name: str):
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    return importlib.import_module(f"benchmarks.{name}")
+
+
+@pytest.mark.parametrize("name", _benchmark_names() + ["paper_repro"])
+def test_port_covers_paper_evaluation_surface(name):
+    if name == "paper_repro":
+        spec = importlib.util.spec_from_file_location(
+            "reference_example_paper_repro",
+            ROOT / "examples" / "paper_repro.py")
+        ref = importlib.util.module_from_spec(spec)
+        _reference_benchmark("common")  # puts the root on the path
+        spec.loader.exec_module(ref)
+        port = importlib.import_module("repro_torch.examples.paper_repro")
+    else:
+        ref = _reference_benchmark(name)
+        port = importlib.import_module(f"repro_torch.benchmarks.{name}")
+    allowed = NO_BENCHMARK_NAME.get(name, {})
+    assert all(hasattr(ref, k) for k in allowed), name
+    missing = [k for k in _public(ref) if k not in allowed
+               and not hasattr(port, k)]
+    assert not missing, f"{port.__name__} lacks {missing}"
+    stale = [k for k in allowed if hasattr(port, k)]
+    assert not stale, f"{port.__name__} has {stale}: take them off the list"
+
+
+def test_benchmark_allow_list_names_ported_modules():
+    assert set(NO_BENCHMARK_NAME) <= set(_benchmark_names())
+    for name in NO_BENCHMARK:
+        assert (ROOT / "benchmarks" / f"{name}.py").exists()
+        assert not (PORT / "benchmarks" / f"{name}.py").exists()
+
+
 def _imports(path: pathlib.Path) -> list[str]:
     tree = ast.parse(path.read_text(), filename=str(path))
     out = []
@@ -147,5 +218,6 @@ def _imports(path: pathlib.Path) -> list[str]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_no_jax_and_no_reference(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax", "optax",
+                                  "benchmarks", "examples")]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
