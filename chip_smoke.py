@@ -224,9 +224,11 @@ results go to lines before the last; each phase prints its wall):
     50%-pruned ``reduced_config()``, min of 3 in turns with the sparse
     schedule's, logits byte-identical; the serial and overlapped batch-4
     walls of the reduced stem on the 1/4-scale array, 5 a side in turns)
-    printed beside the card, every gate of the reference held (the
-    measured pair by the in-turns rule of ``overlap_gate``) and the
-    emulation SLO rows printed; ``replay``, ``traffic_replay.run_quick()``
+    printed beside the card with every wall, each of the four measuring
+    forwards' logits byte-identical to the same forward through the plain
+    versions, every gate of the reference held (the measured pair by the
+    in-turns rule of ``overlap_gate``) and the emulation SLO rows printed;
+    ``replay``, ``traffic_replay.run_quick()``
     with its router and accounting gates, then the real fleet at full
     width: three ``NCServingEngine`` sockets (``socket-35MB``,
     ``scaled(7)``, ``scaled(4)``) behind the latency router serving phase
@@ -234,7 +236,8 @@ results go to lines before the last; each phase prints its wall):
     routed logit row byte-identical to phase 4's served logits, which one
     batch-4 full-width ``nc_forward`` with the kernels swapped for their
     plain versions must reproduce byte for byte (phase 7 runs only the
-    first B images); kernel launches printed per socket and added to the
+    first B images); the fleet's kernel launches held to that forward's
+    GEMM count times the batches the sockets ran, and added to the
     kernels line with the ``sched`` forwards';
 14. times on the card: each kernel and one PyTorch call at its shapes
     (``torch.matmul`` on float64 copies for the bit-serial kernels,
@@ -652,12 +655,15 @@ def phase_serve(inception, serve, backends, bsm, params, images, dev, cfg):
 
 def _exact_plain(bsm):
     """``ops.bitserial_matmul_exact`` with both kernels swapped for their
-    plain versions (the gemm backend reaches the kernels through it)."""
+    plain versions (the gemm backend reaches the kernels through it); its
+    ``calls`` counts the GEMMs it was asked for."""
     def exact(x_q, planes, *, n_bits, w4a4=False):
+        exact.calls += 1
         fn = (bsm.bitserial_matmul_a4_plain if w4a4
               else bsm.bitserial_matmul_plain)
         return fn(x_q, planes, 1.0, None, n_bits=n_bits,
                   out_dtype=torch.int32, signed=False)
+    exact.calls = 0
     return exact
 
 
@@ -3999,24 +4005,47 @@ def phase_lm_nc(lm_neural_cache, registry) -> list:
     return rows
 
 
-def phase_sched(sched_breakdown, bsm, card, dev) -> int:
+def phase_sched(sched_breakdown, ops, bsm, card, dev) -> int:
     """``sched_breakdown`` with its two measured inputs taken on the card
-    (printed beside it) and every gate held; returns the bit-serial
-    kernel's launches in the measuring forwards."""
+    (every wall printed beside it) and every gate held; the logits of each
+    measuring forward (dense and sparse calibration, serial and overlapped
+    stem) byte-identical to the same forward through the plain versions.
+    Returns the bit-serial kernel's launches in the measuring forwards."""
     bsm.bitserial_matmul.launches = 0
-    cal = sched_breakdown.measure_calibration(dev)
-    serial, overlapped = sched_breakdown.measure_overlap(dev)
+    kernel = {}
+    cal_walls = sched_breakdown.calibration_walls(dev, logits=kernel)
+    serial, overlapped = sched_breakdown.measure_overlap(dev, logits=kernel)
     launches = bsm.bitserial_matmul.launches
+    cal = min(cal_walls["dense"])
     ws, wo, spread = sched_breakdown.overlap_gate(serial, overlapped)
     log(f"[sched] on {card}: calibration wall {cal:.4f} s (batch-4 "
-        f"reduced_config(), 50% of filters pruned, dense; min of "
-        f"{sched_breakdown.CALIBRATION_RUNS} in turns with the sparse "
-        f"schedule's)")
+        f"reduced_config(), 50% of filters pruned, min of the dense walls "
+        f"{[round(w, 4) for w in cal_walls['dense']]} s, in turns with the "
+        f"sparse schedule's {[round(w, 4) for w in cal_walls['sparse']]} s)")
     log(f"[sched] on {card}: overlap pair (batch-4 reduced stem, 1/4-scale "
         f"array, in turns) serial {[round(w, 4) for w in serial]} s, "
         f"overlapped {[round(w, 4) for w in overlapped]} s; medians "
         f"{ws:.4f} / {wo:.4f} s, spread {spread:.4f} s; bitserial_matmul "
         f"launches {launches}")
+    if launches == 0:
+        raise AssertionError("sched: the measuring forwards launched no "
+                             "kernel")
+    forwards = {**sched_breakdown.calibration_case(dev),
+                **sched_breakdown.overlap_case(dev)}
+    saved = ops.bitserial_matmul_exact
+    ops.bitserial_matmul_exact = _exact_plain(bsm)
+    try:
+        plain = {name: forward()[0] for name, forward in forwards.items()}
+    finally:
+        ops.bitserial_matmul_exact = saved
+    if bsm.bitserial_matmul.launches != launches:
+        raise AssertionError("sched: the plain forwards launched the kernel")
+    for name, logits in plain.items():
+        if not bits_equal(logits, kernel[name]):
+            raise AssertionError(f"sched: the {name} forward's logits differ "
+                                 f"from the plain versions' forward")
+    log(f"[sched] the {sorted(plain)} forwards' logits byte-identical to "
+        f"the same forwards through the plain versions")
     rows = sched_breakdown.run(device=dev, calibration_wall_s=cal,
                                overlap_walls=(serial, overlapped))
     for r in rows:
@@ -4025,9 +4054,6 @@ def phase_sched(sched_breakdown, bsm, card, dev) -> int:
     emulated = [r for r in rows if r.split(",", 1)[0].endswith("_emulated")]
     if len(emulated) != len(sched_breakdown.SLO_BUDGETS_EMU_S):
         raise AssertionError(f"sched: {len(emulated)} emulation SLO rows")
-    if launches == 0:
-        raise AssertionError("sched: the measuring forwards launched no "
-                             "kernel")
     return launches
 
 
@@ -4037,42 +4063,35 @@ def phase_replay(traffic_replay, serve, inception, ops, bsm, params,
     images and weights: every routed logit row byte-identical to phase 4's
     ``served`` (by ``_real_fleet_bitidentity``), and ``served`` reproduced
     byte for byte by one forward of all the images with the kernels swapped
-    for their plain versions.  Returns the fleet's bit-serial kernel
-    launches."""
+    for their plain versions.  Each forward makes the same GEMMs whatever
+    its batch and array, so the fleet's launches must be the plain
+    forward's GEMM count times the batches the sockets ran.  Returns the
+    fleet's bit-serial kernel launches."""
     for r in traffic_replay.run_quick():
         log(f"[replay] {r}")
-    per_socket: dict = {}
-    real = serve.NCServingEngine._forward
-
-    def forward(engine, *a, **k):
-        n = bsm.bitserial_matmul.launches
-        out = real(engine, *a, **k)
-        per_socket[engine.name] = (per_socket.get(engine.name, 0)
-                                   + bsm.bitserial_matmul.launches - n)
-        return out
-
-    serve.NCServingEngine._forward = forward
     bsm.bitserial_matmul.launches = 0
-    try:
-        line = traffic_replay._real_fleet_bitidentity(
-            params, cfg, images, served, device=dev)
-    finally:
-        serve.NCServingEngine._forward = real
+    stats = {}
+    line = traffic_replay._real_fleet_bitidentity(
+        params, cfg, images, served, device=dev, stats=stats)
     launches = bsm.bitserial_matmul.launches
-    log(f"[replay] {line}; config {cfg.name}; bitserial_matmul launches by "
-        f"socket {per_socket} (total {launches})")
-    if launches == 0 or sum(per_socket.values()) != launches:
-        raise AssertionError(f"replay: fleet launches {per_socket}, "
-                             f"{launches}")
     x = torch.from_numpy(np.stack(images)).to(dev)
     saved = ops.bitserial_matmul_exact
-    ops.bitserial_matmul_exact = _exact_plain(bsm)
+    ops.bitserial_matmul_exact = exact = _exact_plain(bsm)
     try:
         plain, _ = inception.nc_forward(params, x, config=cfg, device=dev)
     finally:
         ops.bitserial_matmul_exact = saved
     if bsm.bitserial_matmul.launches != launches:
         raise AssertionError("replay: the plain forward launched the kernel")
+    per_socket = {n: exact.calls * b for n, b in stats["forwards"].items()}
+    log(f"[replay] {line}; config {cfg.name}; batches by socket "
+        f"{stats['forwards']}, dispatched {stats['dispatched']}; "
+        f"bitserial_matmul launches {launches} = {exact.calls} GEMMs a "
+        f"forward x {sum(stats['forwards'].values())} batches "
+        f"({per_socket} by socket)")
+    if launches == 0 or sum(per_socket.values()) != launches:
+        raise AssertionError(f"replay: fleet launches {launches}, want "
+                             f"{per_socket}")
     for i in range(len(images)):
         if not bits_equal(plain[i], served[i]):
             raise AssertionError(f"replay: image {i}: phase 4's served "
@@ -4096,7 +4115,8 @@ def phase_paper(timed, inception, serve, ops, bsm, card, images, served,
     _fresh_card(dev)
     timed("paper-repro", phase_paper_repro, paper_repro, dev)
     timed("lm-nc", phase_lm_nc, lm_neural_cache, REGISTRY)
-    sched = timed("sched", phase_sched, sched_breakdown, bsm, card, dev)
+    sched = timed("sched", phase_sched, sched_breakdown, ops, bsm, card,
+                  dev)
     params = _inception_params(inception, cfg, dev)
     fleet = timed("replay", phase_replay, traffic_replay, serve, inception,
                   ops, bsm, params, images, served, dev, cfg)

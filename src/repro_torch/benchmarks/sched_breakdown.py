@@ -73,67 +73,102 @@ def _inputs(cfg, dev):
     return params, xb
 
 
-def measure_calibration(device=None) -> float:
-    """The batch-4 wall in seconds of ``reduced_config()`` with the last
-    50% of every conv's filters zeroed (``prune_wpack``), executed dense:
-    the minimum of ``CALIBRATION_RUNS`` runs, each followed by the sparse
-    schedule's run on the same weights, whose logits must be
-    byte-identical (the reference's harness times this pair the same
-    way).  Every wall waits for the card."""
+def calibration_case(device=None) -> dict:
+    """The calibration's two forwards on ``device``: ``reduced_config()``
+    at batch 4 with the last 50% of every conv's filters zeroed
+    (``prune_wpack``), run ``"dense"`` and on the ``"sparse"`` schedule.
+    Each entry is a zero-argument call returning ``nc_forward``'s
+    ``(logits, report)``."""
     dev = resolve_device(device)
     cfg = reduced_config()
     params, xb = _inputs(cfg, dev)
     wpack = inception.prune_wpack(
         inception.prepare_conv_weights(params, cfg), PRUNE)
-    wall = float("inf")
-    for _ in range(CALIBRATION_RUNS):
-        t0 = clock()
-        dense, _ = inception.nc_forward(params, xb, config=cfg, wpack=wpack,
-                                        device=dev)
-        wall = min(wall, clock() - t0)
-        sparse, _ = inception.nc_forward(params, xb, config=cfg,
-                                         wpack=wpack, sparse=True,
-                                         device=dev)
-        if not same_bits(dense, sparse):
-            raise RuntimeError("calibration: sparse nc_forward logits "
-                               "diverge from dense on the same pruned "
-                               "weights")
-    return wall
+
+    def forward(**kw):
+        return inception.nc_forward(params, xb, config=cfg, wpack=wpack,
+                                    device=dev, **kw)
+
+    return {"dense": forward, "sparse": lambda: forward(sparse=True)}
 
 
-def measure_overlap(device=None) -> tuple[list[float], list[float]]:
-    """Serial and overlapped batch-4 walls in seconds of
-    ``reduced_config(width_div=2, stages=())`` on
+def overlap_case(device=None) -> dict:
+    """The overlap pair's two forwards on ``device``:
+    ``reduced_config(width_div=2, stages=())`` at batch 4 on
     ``XEON_E5_35MB.scaled(4)`` (at the full array every reduced layer is
-    single-pass and the §IV-E rule grants no overlap), ``OVERLAP_RUNS`` a
-    side, timed in turns after one warm call of each (the side that goes
-    first alternates).  Raises unless the two sides' logits are
-    byte-identical and at least one layer ran with ``overlap`` set."""
+    single-pass and the §IV-E rule grants no overlap), ``"serial"`` and
+    ``"overlapped"``, each a zero-argument call as in
+    :func:`calibration_case`."""
     dev = resolve_device(device)
     cfg = reduced_config(width_div=2, stages=())
-    geom = XEON_E5_35MB.scaled(4)
     params, xb = _inputs(cfg, dev)
     wpack = inception.prepare_conv_weights(params, cfg)
 
     def forward(overlap):
-        return inception.nc_forward(params, xb, config=cfg, geom=geom,
-                                    wpack=wpack, overlap=overlap, device=dev)
+        return inception.nc_forward(params, xb, config=cfg,
+                                    geom=XEON_E5_35MB.scaled(4), wpack=wpack,
+                                    overlap=overlap, device=dev)
 
-    serial_logits, _ = forward(False)
-    logits, report = forward(True)
-    if not same_bits(serial_logits, logits):
+    return {"serial": lambda: forward(False),
+            "overlapped": lambda: forward(True)}
+
+
+def calibration_walls(device=None, *, logits=None) -> dict:
+    """The walls in seconds of :func:`calibration_case`'s forwards,
+    ``CALIBRATION_RUNS`` each, dense and sparse in turns (as the
+    reference's harness times the pair); each wall waits for the card.
+    Raises unless the two sides' logits are byte-identical; ``logits``,
+    when given, receives each side's last logits."""
+    forwards = calibration_case(device)
+    walls = {name: [] for name in forwards}
+    out = {}
+    for _ in range(CALIBRATION_RUNS):
+        for name, forward in forwards.items():
+            t0 = clock()
+            out[name], _ = forward()
+            walls[name].append(clock() - t0)
+        if not same_bits(out["dense"], out["sparse"]):
+            raise RuntimeError("calibration: sparse nc_forward logits "
+                               "diverge from dense on the same pruned "
+                               "weights")
+    if logits is not None:
+        logits.update(out)
+    return walls
+
+
+def measure_calibration(device=None) -> float:
+    """The calibration wall in seconds: the least of
+    :func:`calibration_walls`' dense walls."""
+    return min(calibration_walls(device)["dense"])
+
+
+def measure_overlap(device=None, *, logits=None
+                    ) -> tuple[list[float], list[float]]:
+    """Serial and overlapped walls in seconds of :func:`overlap_case`'s
+    forwards, ``OVERLAP_RUNS`` a side, timed in turns after one warm call
+    of each (the side that goes first alternates).  Raises unless the two
+    sides' logits are byte-identical and at least one layer ran with
+    ``overlap`` set; ``logits``, when given, receives each side's logits
+    from the warm call."""
+    forwards = overlap_case(device)
+    serial_logits, _ = forwards["serial"]()
+    overlapped_logits, report = forwards["overlapped"]()
+    if not same_bits(serial_logits, overlapped_logits):
         raise RuntimeError("overlap gate: overlapped nc_forward logits "
                            "diverge from serial on the same weights")
     if not any(l.overlap for l in report.layers):
         raise RuntimeError("overlap gate: no layer executed double-buffered "
                            "— the pair would be measuring noise")
-    walls = {False: [], True: []}
+    if logits is not None:
+        logits.update(serial=serial_logits, overlapped=overlapped_logits)
+    walls = {"serial": [], "overlapped": []}
     for i in range(OVERLAP_RUNS):
-        for overlap in ((False, True) if i % 2 == 0 else (True, False)):
+        for name in (("serial", "overlapped") if i % 2 == 0
+                     else ("overlapped", "serial")):
             t0 = clock()
-            forward(overlap)
-            walls[overlap].append(clock() - t0)
-    return walls[False], walls[True]
+            forwards[name]()
+            walls[name].append(clock() - t0)
+    return walls["serial"], walls["overlapped"]
 
 
 def overlap_gate(serial, overlapped) -> tuple[float, float, float]:

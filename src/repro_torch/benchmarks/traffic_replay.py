@@ -191,11 +191,14 @@ def _replay_pair(trace_name: str, trace) -> tuple[list[str], dict]:
 
 
 def _real_fleet_bitidentity(params=None, config=None, images=None,
-                            reference_logits=None, *, device=None) -> str:
+                            reference_logits=None, *, device=None,
+                            stats=None) -> str:
     """Route ``images`` through three real ``NCServingEngine`` sockets on
     ``device`` (default ``cuda``) and RAISE unless every logit row is
     byte-identical to ``reference_logits[rid]`` or, when none are given,
     to a standalone ``nc_forward`` — whichever socket served it.
+    ``stats``, when given, receives the orchestrator's ``stats()`` and
+    ``forwards``, the batches each socket ran by name.
 
     By default the reference's tiny stem config
     (``reduced_config(img=47, width_div=8, classes=8, stages=())``) with
@@ -237,6 +240,9 @@ def _real_fleet_bitidentity(params=None, config=None, images=None,
         if not same_bits(r.logits, torch.as_tensor(ref).to(r.logits.device)):
             raise RuntimeError(f"real-fleet: request {r.rid} logits differ "
                                f"from {what}")
+    if stats is not None:
+        stats.update(orch.stats(), forwards={
+            e.name: sum(e.batch_histogram.values()) for e in engines})
     served = {n: c for n, c in orch.dispatched.items() if c}
     return row("replay/real_fleet_bitident", wall_us,
                f"{len(images)} imgs byte-identical across {len(served)} "

@@ -26,6 +26,7 @@ if str(ROOT) not in sys.path:
 import benchmarks.sched_breakdown as R  # noqa: E402
 import repro.core.simulator as rsim  # noqa: E402
 from repro_torch.benchmarks import sched_breakdown as T  # noqa: E402
+from repro_torch.benchmarks.common import same_bits  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -190,7 +191,8 @@ def test_run_measures_what_it_is_not_given(monkeypatch):
 def test_measuring_on_cuda_without_gpu_raises():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    for fn in (T.measure_calibration, T.measure_overlap):
+    for fn in (T.measure_calibration, T.measure_overlap,
+               T.calibration_walls, T.calibration_case, T.overlap_case):
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             fn(None)
 
@@ -221,6 +223,23 @@ def test_measure_calibration_fails_on_diverging_logits(monkeypatch):
     with pytest.raises(RuntimeError, match="sparse nc_forward logits "
                                            "diverge"):
         T.measure_calibration("cpu")
+
+
+def test_measuring_forwards_hand_back_their_logits(monkeypatch):
+    """Every wall a side, and each side's logits equal to its case's
+    forward, so that a caller can hold them against another forward."""
+    monkeypatch.setattr(T, "CALIBRATION_RUNS", 2)
+    monkeypatch.setattr(T, "OVERLAP_RUNS", 1)
+    logits = {}
+    walls = T.calibration_walls("cpu", logits=logits)
+    assert sorted(walls) == ["dense", "sparse"]
+    assert all(len(w) == 2 and min(w) > 0 for w in walls.values())
+    serial, overlapped = T.measure_overlap("cpu", logits=logits)
+    assert len(serial) == len(overlapped) == 1
+    forwards = {**T.calibration_case("cpu"), **T.overlap_case("cpu")}
+    assert sorted(logits) == sorted(forwards)
+    for name, forward in forwards.items():
+        assert same_bits(forward()[0], logits[name]), name
 
 
 def test_command_line(monkeypatch, capsys):

@@ -9,8 +9,9 @@ full width, the CUDA calls stubbed out and the bit-serial kernel's wrapper
 counted where the card counts launches (the plain versions run on the
 CPU).  Every check must hold; the headline rows must be the reference's
 lines; a headline row planted off, a GEMM wrong alike in every forward
-(which the fleet and phase 4 would agree on) and a served logit row
-shifted in the fleet must each fail.
+(which the fleet and phase 4, dense and sparse, serial and overlapped
+would each agree on), a served logit row shifted in the fleet and a
+launch count off the fleet's batches must each fail.
 """
 import importlib.util
 import pathlib
@@ -25,6 +26,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.benchmarks import lm_neural_cache  # noqa: E402
+from repro_torch.benchmarks import sched_breakdown  # noqa: E402
 from repro_torch.benchmarks import tab4_cache_scaling  # noqa: E402
 from repro_torch.benchmarks import traffic_replay  # noqa: E402
 from repro_torch.configs import REGISTRY  # noqa: E402
@@ -120,6 +122,31 @@ def test_lm_nc_phase_holds_one_row_per_arch():
     assert len(rows) == len(REGISTRY)
     with pytest.raises(AssertionError, match="lm_nc rows"):
         cs.phase_lm_nc(lm_neural_cache, dict(REGISTRY, extra=None))
+
+
+def test_sched_step_fails_on_a_gemm_fault(cpu_phase, monkeypatch):
+    """A kernel wrong alike in every measuring forward: dense agrees with
+    sparse and serial with overlapped, so only the plain versions' forwards
+    can catch it."""
+    def wrong(out):
+        out[:, 0] += 1 << 12
+
+    _counted(monkeypatch, wrong)
+    with pytest.raises(AssertionError, match="forward's logits differ from "
+                                             "the plain versions' forward"):
+        cs.phase_sched(sched_breakdown, ops, bsm, "cpu card", DEV)
+
+
+def test_replay_step_fails_on_launches_off_the_batches(cpu_phase,
+                                                       monkeypatch):
+    """Launches the fleet's batches do not account for must fail."""
+    params, images = _inputs()
+    served = _served(params, images)
+    _counted(monkeypatch, lambda out: setattr(
+        bsm.bitserial_matmul, "launches", bsm.bitserial_matmul.launches + 1))
+    with pytest.raises(AssertionError, match="replay: fleet launches"):
+        cs.phase_replay(traffic_replay, serve, inception, ops, bsm, params,
+                        images, served, DEV, CFG)
 
 
 def test_replay_step_fails_on_a_gemm_fault(cpu_phase, monkeypatch):

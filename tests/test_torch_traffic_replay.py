@@ -144,6 +144,18 @@ def test_real_fleet_serves_reference_logits(stem):
     assert text.endswith(" real sockets")
 
 
+def test_real_fleet_hands_back_its_batches(stem):
+    stats = {}
+    T._real_fleet_bitidentity(stem.params, stem.cfg, stem.images,
+                              stem.logits, device="cpu", stats=stats)
+    assert list(stats["forwards"]) == ["socket-35MB", "socket-17MB",
+                                       "socket-10MB"]
+    assert (sum(stats["forwards"].values())
+            == sum(stats["batch_histogram"].values())
+            == sum(stats["dispatched"].values()))
+    assert stats["completed"] == 6 and stats["failed"] == 0
+
+
 def test_real_fleet_defaults_are_the_reference_s(stem):
     """No arguments: the reference's stem config, seeded weights of the
     port's own and the reference's 6 images, held to standalone forwards."""
