@@ -1,0 +1,8 @@
+"""Share of the traced window, in percent, in which no operation ran on the
+device."""
+
+
+def read(ctx):
+    if ctx["busy_s"] <= 0 or ctx["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - ctx["busy_s"] / ctx["window_s"])
