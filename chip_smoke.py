@@ -58,7 +58,8 @@ results go to lines before the last; each phase prints its wall):
    ``NCForwardReport.summary()`` tables byte-identical (the table printed);
    the correlation with the float forward is printed for information;
    then the forward's
-   split into pack / dot / min-max tree / requant; then, at full width on
+   split into pack / dot / min-max tree / requant / other, read from the
+   program's own spans (``repro_torch.tracing``); then, at full width on
    phase 4's first B images: ``apply(quant=True)`` against ``apply()``
    (correlation above 0.98 per image) and phase 4's emulated logits
    against ``apply(quant=True)`` (above 0.95); ``nc_forward(x,
@@ -857,38 +858,31 @@ def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
     return t_kernel, wpack
 
 
-def phase_split(inception, nc_layers, bitserial, params, x, wpack, dev, cfg):
-    """Full-width forward with a synchronizing wall-clock timer around each
-    stage (the synchronizations inflate the total slightly)."""
-    split = {"pack": 0.0, "dot": 0.0, "minmax tree": 0.0, "requant": 0.0}
+def phase_split(inception, params, x, wpack, dev, cfg):
+    """Full-width forward split into five stages by the program's own spans
+    (``repro_torch.tracing``): pack (``layer.pack``: the filters' copy to
+    the card, quantization, im2col and word packing), dot, the min/max
+    tree (``minmax.tree``), requant (``epilogue.requant`` and the blocks'
+    ``concat``) and the rest of the forward.  A span holds the host's time
+    in its call, not the device work it leaves queued: each stage excludes
+    the device tail after its calls, which the next host sync charges to
+    the stage that makes it."""
+    from repro_torch import tracing
 
-    def timed(stage, fn):
-        def wrapper(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
-            split[stage] += time.perf_counter() - t
-            return out
-        return wrapper
-
-    patches = [(nc_layers, "_pack_x_rows", "pack"),
-               (nc_layers, "_pack_w_rows", "pack"),
-               (bitserial, "packed_dot_words", "dot"),
-               (nc_layers, "nc_minmax", "minmax tree"),
-               (inception, "_requant_image", "requant")]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
-    for mod, attr, stage in patches:
-        setattr(mod, attr, timed(stage, getattr(mod, attr)))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tracing.session():
         inception.nc_forward(params, x, config=cfg, wpack=wpack, device=dev)
         torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
+    total = time.perf_counter() - t0
+    spans = tracing.last_session().totals()
+
+    def span_s(*names):
+        return sum(spans[n]["total_s"] for n in names if n in spans)
+
+    split = {"pack": span_s("layer.pack"), "dot": span_s("dot"),
+             "minmax tree": span_s("minmax.tree"),
+             "requant": span_s("epilogue.requant", "concat")}
     split["other"] = total - sum(split.values())
     log(f"[split] batch {x.shape[0]} full-width forward {total:.3f} s: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in split.items()))
@@ -4229,8 +4223,7 @@ def main() -> int:
     log(f"[faults] checked, compressed, faulted batch-{B} serving "
         f"{faulted_wall:.2f} s against the clean batch-{B} forward "
         f"{t_forward:.2f} s ({reexec} passes re-run)")
-    timed("split", phase_split, inception, nc_layers, bitserial, params, x,
-          wpack, dev, cfg)
+    timed("split", phase_split, inception, params, x, wpack, dev, cfg)
     timed("inception-quant", phase_inception_quant, inception, params, x,
           served, cfg)
     launches_chunk = timed("stream-chunk", phase_stream_chunk, inception,

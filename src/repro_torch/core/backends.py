@@ -45,6 +45,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import bitserial as bs
 
 __all__ = [
@@ -201,7 +202,8 @@ def _row_grid(words: torch.Tensor, K: int):
         grid = tuple(words.shape[1:-1])
         return vals.reshape(-1, K), grid
     grid = tuple(words.shape[1:])
-    if grid[-1] == 1 and bool((vals == vals[..., :1, :]).all()):
+    if grid[-1] == 1 and tracing.fetch(
+            bool, (vals == vals[..., :1, :]).all()):
         return vals[..., 0, :].reshape(-1, K), grid
     return vals.reshape(-1, K), grid[:-1] + (grid[-1] * r,)
 

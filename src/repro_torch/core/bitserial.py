@@ -49,6 +49,8 @@ import math
 
 import torch
 
+from repro_torch import tracing
+
 __all__ = [
     "PackedPlanes",
     "pack_lanes",
@@ -899,7 +901,7 @@ class CompressedPlanes:
             raise ValueError(f"expected (n_planes, n_columns, ...) words, "
                              f"got {tuple(words.shape)}")
         live = cls.live_columns(words)
-        index = tuple(torch.nonzero(live[p]).flatten()
+        index = tuple(tracing.fetch(torch.nonzero, live[p]).flatten()
                       for p in range(words.shape[0]))
         cols = tuple(words[p, index[p]].contiguous()
                      for p in range(words.shape[0]))
@@ -922,15 +924,17 @@ class CompressedPlanes:
         the stores (a per-pass store, as an overlap plan keeps them)."""
         live = cls.live_columns(words).to(torch.int64)  # (n, C)
         tail = _numel(tuple(words.shape[2:]))
-        edges = torch.tensor([0] + [m1 for _, m1 in bounds],
-                             dtype=torch.int64, device=live.device)
+        edges = tracing.fetch(torch.tensor, [0] + [m1 for _, m1 in bounds],
+                              dtype=torch.int64, device=live.device)
         csum = torch.cat([live.new_zeros((live.shape[0], 1)),
                           live.cumsum(dim=1)], dim=1)
         per = csum[:, edges[1:]] - csum[:, edges[:-1]]  # (n, tiles) live cols
-        widths = torch.tensor([-(-(m1 - m0) // 8) for m0, m1 in bounds],
-                              dtype=torch.int64, device=live.device)
-        payload = int(per.sum()) * tail * 4
-        index = int(((per > 0).to(torch.int64) * widths[None, :]).sum())
+        widths = tracing.fetch(torch.tensor,
+                               [-(-(m1 - m0) // 8) for m0, m1 in bounds],
+                               dtype=torch.int64, device=live.device)
+        payload = tracing.fetch(int, per.sum()) * tail * 4
+        index = tracing.fetch(
+            int, ((per > 0).to(torch.int64) * widths[None, :]).sum())
         return payload, index
 
     def dense(self) -> torch.Tensor:
@@ -949,8 +953,8 @@ class CompressedPlanes:
         grid = ref.new_zeros((self.n_planes, stop - start) + self.tail_shape)
         for p, (idx, cols) in enumerate(zip(self.column_index, self.columns)):
             if idx.numel():
-                lo = int(torch.searchsorted(idx, start))
-                hi = int(torch.searchsorted(idx, stop))
+                lo = tracing.fetch(int, torch.searchsorted(idx, start))
+                hi = tracing.fetch(int, torch.searchsorted(idx, stop))
                 if lo < hi:
                     grid[p, idx[lo:hi] - start] = cols[lo:hi]
         return grid

@@ -40,6 +40,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import backends as _backends
 from repro_torch.core import bitserial as bs
 from repro_torch.core import faults
@@ -230,9 +231,11 @@ def _dot_rows(win_flat: torch.Tensor, ww: torch.Tensor, x_bits: int, K: int,
     out = torch.empty((T, M), dtype=torch.int64, device=win_flat.device)
     for t0 in range(0, T, chunk):
         t1 = min(t0 + chunk, T)
-        xw = _pack_x_rows(win_flat[t0:t1], x_bits)
-        vals, _ = bs.packed_dot_words(xw, ww, K=K, acc_bits=acc_bits,
-                                      engine=engine)
+        with tracing.span("layer.pack"):
+            xw = _pack_x_rows(win_flat[t0:t1], x_bits)
+        with tracing.span("dot"):
+            vals, _ = bs.packed_dot_words(xw, ww, K=K, acc_bits=acc_bits,
+                                          engine=engine)
         out[t0:t1] = vals.reshape(M, -1)[:, : t1 - t0].t()
     return out
 
@@ -550,40 +553,46 @@ def nc_conv2d(
     dev = x4.device
     B = x4.shape[0]
     x_qps = _as_qp_list(x_qp, B)
-    w = w.to(dev)
-    wq = (w.to(torch.int64) if not torch.is_floating_point(w)
-          else _quantize_weights(w, w_qp))
-    xq = _quantize_images(x4, x_qps)
-    R, S, Cw, M = wq.shape
-    if xq.shape[3] != Cw:
-        raise ValueError(f"input has {xq.shape[3]} channels, filters {Cw}")
-    zxs = torch.tensor([int(p.zero_point) for p in x_qps], dtype=torch.int64,
-                       device=dev)
-    if padding == "SAME":
-        ph = _same_pad(xq.shape[1], R, stride)
-        pw = _same_pad(xq.shape[2], S, stride)
-        padded = zxs[:, None, None, None].expand(
-            B, xq.shape[1] + sum(ph), xq.shape[2] + sum(pw), Cw).clone()
-        padded[:, ph[0]:ph[0] + xq.shape[1], pw[0]:pw[0] + xq.shape[2]] = xq
-        xq = padded
-    elif padding != "VALID":
-        raise ValueError(f"padding must be VALID or SAME, got {padding!r}")
-    H = xq.shape[1]
-    n_bits = max(x_qps[0].bits, w_qp.bits)
-    # engine operands are the low bytes (the reference's uint8 cast); the
-    # affine correction below reads the windows' true (signed) values
-    small = torch.uint8 if n_bits <= 8 else torch.int64
-    win, E, F = _extract_windows_batch(
-        xq if x_qps[0].signed else xq.to(small), R, S, stride)
-    K = R * S * Cw
-    acc_bits = 32
+    # operands: the filters' copy to the device, quantization, im2col
+    with tracing.span("layer.pack"):
+        if w.device != dev:
+            w = tracing.fetch(w.to, dev)
+        wq = (w.to(torch.int64) if not torch.is_floating_point(w)
+              else _quantize_weights(w, w_qp))
+        xq = _quantize_images(x4, x_qps)
+        R, S, Cw, M = wq.shape
+        if xq.shape[3] != Cw:
+            raise ValueError(f"input has {xq.shape[3]} channels, "
+                             f"filters {Cw}")
+        zxs = tracing.fetch(torch.tensor, [int(p.zero_point) for p in x_qps],
+                            dtype=torch.int64, device=dev)
+        if padding == "SAME":
+            ph = _same_pad(xq.shape[1], R, stride)
+            pw = _same_pad(xq.shape[2], S, stride)
+            padded = zxs[:, None, None, None].expand(
+                B, xq.shape[1] + sum(ph), xq.shape[2] + sum(pw), Cw).clone()
+            padded[:, ph[0]:ph[0] + xq.shape[1],
+                   pw[0]:pw[0] + xq.shape[2]] = xq
+            xq = padded
+        elif padding != "VALID":
+            raise ValueError(f"padding must be VALID or SAME, got "
+                             f"{padding!r}")
+        H = xq.shape[1]
+        n_bits = max(x_qps[0].bits, w_qp.bits)
+        # engine operands are the low bytes (the reference's uint8 cast); the
+        # affine correction below reads the windows' true (signed) values
+        small = torch.uint8 if n_bits <= 8 else torch.int64
+        win, E, F = _extract_windows_batch(
+            xq if x_qps[0].signed else xq.to(small), R, S, stride)
+        K = R * S * Cw
+        acc_bits = 32
 
-    spec = layer_spec or LayerSpec(
-        name="nc_conv2d", kind="conv", H=H, R=R, S=S, C=Cw, M=M, E=E,
-        stride=stride)
-    rows_total = B * E * F
-    win_flat = win.reshape(rows_total, K).to(small)
-    w_rows = wq.reshape(K, M).t().to(small)
+        spec = layer_spec or LayerSpec(
+            name="nc_conv2d", kind="conv", H=H, R=R, S=S, C=Cw, M=M, E=E,
+            stride=stride)
+        rows_total = B * E * F
+        win_flat = win.reshape(rows_total, K).to(small)
+        w_rows = wq.reshape(K, M).t().to(small)
     zw_int = int(w_qp.zero_point)
     replan = plan is None or tile_pixels is not None or tile_filters is not None
     if occupancy is not None and not replan:
@@ -635,26 +644,29 @@ def nc_conv2d(
     tile_rows = max(1, min(plan.tile_rows, rows_total))
     tile_filters = max(1, min(plan.tile_filters, M))
 
-    occ = plan.occupancy
-    if occ is not None and occ.zero_filters:
-        if occ.total_filters != M:
-            raise ValueError(f"{spec.name}: occupancy covers "
-                             f"{occ.total_filters} filters, layer has {M}")
-        zero_idx = torch.tensor(occ.zero_filters, dtype=torch.int64,
-                                device=dev)
-        not_zero = ~(w_rows[zero_idx] == zw_int).all(dim=1)
-        if bool(not_zero.any()):
-            raise ValueError(
-                f"{spec.name}: occupancy marks filters "
-                f"{zero_idx[not_zero].tolist()} as zero but their weights "
-                f"are live (stale plan?)")
-        zero_mask = torch.zeros(M, dtype=torch.bool, device=dev)
-        zero_mask[zero_idx] = True
-        live_idx = torch.nonzero(~zero_mask).flatten()
-    else:
-        zero_mask = live_idx = None
+    # the live filters: zero filters found and gathered out
+    with tracing.span("layer.pack"):
+        occ = plan.occupancy
+        if occ is not None and occ.zero_filters:
+            if occ.total_filters != M:
+                raise ValueError(f"{spec.name}: occupancy covers "
+                                 f"{occ.total_filters} filters, layer has {M}")
+            zero_idx = tracing.fetch(torch.tensor, occ.zero_filters,
+                                     dtype=torch.int64, device=dev)
+            not_zero = ~(w_rows[zero_idx] == zw_int).all(dim=1)
+            if tracing.fetch(bool, not_zero.any()):
+                raise ValueError(
+                    f"{spec.name}: occupancy marks filters "
+                    f"{zero_idx[not_zero].tolist()} as zero but their weights "
+                    f"are live (stale plan?)")
+            zero_mask = torch.zeros(M, dtype=torch.bool, device=dev)
+            # the scalar store copies its True from the host
+            tracing.fetch(zero_mask.__setitem__, zero_idx, True)
+            live_idx = tracing.fetch(torch.nonzero, ~zero_mask).flatten()
+        else:
+            zero_mask = live_idx = None
 
-    w_rows_live = w_rows if live_idx is None else w_rows[live_idx]
+        w_rows_live = w_rows if live_idx is None else w_rows[live_idx]
     M_live = w_rows_live.shape[0]
     per_dot = bs.dot_cycles(K, n_bits, acc_bits)
     overlap_exec = bool(plan.overlap)
@@ -672,18 +684,19 @@ def nc_conv2d(
     run = dict(tiles=0, verify_passes=0, reexec_passes=0, faults_detected=0,
                integrity_cycles=0, reexec_cycles=0, plan=plan)
     if M_live:
-        # filters packed once per layer per batch
-        ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
-        if compressed_exec:
-            # the CSR-per-bit-plane store stays resident and the dot
-            # consumes its byte-identical reconstruction.  An overlap plan
-            # keeps one store per pass's filter columns: its bytes are the
-            # sum over the passes' stores, as the reference reports them
-            store = bs.CompressedPlanes.compress(ww_all)
-            csr_bytes = (bs.CompressedPlanes.split_bytes(ww_all, m_tiles)
-                         if overlap_exec
-                         else (store.payload_bytes, store.index_bytes))
-            ww_all = store.dense()
+        with tracing.span("layer.pack"):
+            # filters packed once per layer per batch
+            ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
+            if compressed_exec:
+                # the CSR-per-bit-plane store stays resident and the dot
+                # consumes its byte-identical reconstruction.  An overlap plan
+                # keeps one store per pass's filter columns: its bytes are the
+                # sum over the passes' stores, as the reference reports them
+                store = bs.CompressedPlanes.compress(ww_all)
+                csr_bytes = (bs.CompressedPlanes.split_bytes(ww_all, m_tiles)
+                             if overlap_exec
+                             else (store.payload_bytes, store.index_bytes))
+                ww_all = store.dense()
         walk = engine == "walk"
         # the walk's own per-call counts are replaced by the per-tile ones
         with bs.counts_into(bs.SkipStats()) if walk else nullcontext():
@@ -710,29 +723,32 @@ def nc_conv2d(
             out = vals
         else:
             out[:, live_idx] = vals
-    if zero_mask is not None:
-        # pruned passes: an all-zero filter's dot is the affine constant
-        # zw * sum_k(x_k) — exact, no engine lanes clocked for it
-        row_sums = win_flat.sum(dim=1, dtype=torch.int64)
-        out[:, zero_mask] = zw_int * row_sums[:, None]
     total_cycles = per_dot * rows_total * M_live
     # checksum verifications and re-executed passes charge the same §III
     # formulas as the real work: an additive term, zero when unchecked
     total_cycles += run["integrity_cycles"] + run["reexec_cycles"]
+    with tracing.span("layer.correct"):
+        if zero_mask is not None:
+            # pruned passes: an all-zero filter's dot is the affine constant
+            # zw * sum_k(x_k) — exact, no engine lanes clocked for it.  The
+            # boolean-mask store reads the mask's count to the host
+            row_sums = win_flat.sum(dim=1, dtype=torch.int64)
+            tracing.fetch(out.__setitem__, (slice(None), zero_mask),
+                          zw_int * row_sums[:, None])
 
-    # affine zero-point correction (exact integer identity, per image)
-    sx = win.sum(dim=-1, dtype=torch.int64)  # (B, E, F)
-    sw = wq.sum(dim=(0, 1, 2))  # (M,)
-    zx = zxs[:, None, None, None]
-    acc = (out.reshape(B, E, F, M) - zw_int * sx[..., None]
-           - zx * sw[None, None, None, :] + K * zx * zw_int)
-    result = (acc if batched else acc[0]).to(torch.int32)
-    if not return_stats:
-        return result, total_cycles
-    # separable zero-operand count: sum_k (#nonzero windows_k)(#nonzero w_k)
-    cx = (win_flat != 0).sum(dim=0, dtype=torch.int64)
-    cw = (w_rows != 0).sum(dim=0, dtype=torch.int64)
-    live = int((cx * cw).sum())
+        # affine zero-point correction (exact integer identity, per image)
+        sx = win.sum(dim=-1, dtype=torch.int64)  # (B, E, F)
+        sw = wq.sum(dim=(0, 1, 2))  # (M,)
+        zx = zxs[:, None, None, None]
+        acc = (out.reshape(B, E, F, M) - zw_int * sx[..., None]
+               - zx * sw[None, None, None, :] + K * zx * zw_int)
+        result = (acc if batched else acc[0]).to(torch.int32)
+        if not return_stats:
+            return result, total_cycles
+        # separable zero-operand count: sum_k nnz(windows_k) * nnz(w_k)
+        cx = (win_flat != 0).sum(dim=0, dtype=torch.int64)
+        cw = (w_rows != 0).sum(dim=0, dtype=torch.int64)
+        live = tracing.fetch(int, (cx * cw).sum())
     eff_plan = run["plan"]
     stats = ConvStats(
         lanes=rows_total * M * K,
@@ -823,21 +839,23 @@ def nc_minmax(x_q: torch.Tensor, bits: int = 32, signed: bool = False):
     ``bits``-wide two's complement values by ``2^(bits-1)`` on the way in
     and out (+2 cycles).  Returns ``(mins, maxs, cycles)`` shaped like the
     leading axes."""
-    lead = tuple(x_q.shape[:-1])
-    K = x_q.shape[-1] if x_q.ndim else 1
-    rows = x_q.reshape(-1, K).to(torch.int64)
-    bias = (1 << (bits - 1)) if signed else 0
-    u = (rows + bias) & ((1 << bits) - 1)
-    P = 1 << max(0, (K - 1).bit_length())
-    padded = u[:, :1].expand(u.shape[0], P).clone()  # neutral pad
-    padded[:, :K] = u
-    pp = bs.pack_values(padded, bits, row_align=True)
-    (mn_pp, mx_pp), cycles = bs.bitserial_minmax(pp)
-    mn = bs.unpack_values(mn_pp).reshape(-1) - bias
-    mx = bs.unpack_values(mx_pp).reshape(-1) - bias
-    if signed:
-        cycles += 2
-    return mn.reshape(lead), mx.reshape(lead), cycles
+    with tracing.span("minmax"):
+        lead = tuple(x_q.shape[:-1])
+        K = x_q.shape[-1] if x_q.ndim else 1
+        rows = x_q.reshape(-1, K).to(torch.int64)
+        bias = (1 << (bits - 1)) if signed else 0
+        u = (rows + bias) & ((1 << bits) - 1)
+        P = 1 << max(0, (K - 1).bit_length())
+        padded = u[:, :1].expand(u.shape[0], P).clone()  # neutral pad
+        padded[:, :K] = u
+        pp = bs.pack_values(padded, bits, row_align=True)
+        with tracing.span("minmax.tree"):
+            (mn_pp, mx_pp), cycles = bs.bitserial_minmax(pp)
+        mn = bs.unpack_values(mn_pp).reshape(-1) - bias
+        mx = bs.unpack_values(mx_pp).reshape(-1) - bias
+        if signed:
+            cycles += 2
+        return mn.reshape(lead), mx.reshape(lead), cycles
 
 
 def nc_fc(x: torch.Tensor, w: torch.Tensor,

@@ -38,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs import REGISTRY, get_config, reduced_config
 from repro_torch.core import backends as nc_backends
 from repro_torch.core import schedule as nc_schedule
@@ -332,10 +333,11 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
 
     def _forward(self, x: torch.Tensor, schedule):
         """One batched forward through the planned emulation."""
-        return inception.nc_forward(
-            self.params, x, config=self.config, geom=self.geom,
-            engine=self.engine, schedule=schedule, wpack=self.wpack,
-            device=self.device)
+        with tracing.span("forward"):
+            return inception.nc_forward(
+                self.params, x, config=self.config, geom=self.geom,
+                engine=self.engine, schedule=schedule, wpack=self.wpack,
+                device=self.device)
 
     def submit(self, req, now: float | None = None) -> None:
         req.arrival_t = self.now_fn() if now is None else now
@@ -358,6 +360,15 @@ class NCServingEngine(BatchQueueEngine, _EngineAPI):
                 return False
             n = decision.admit
         batch = [self.queue.pop(0) for _ in range(n)]
+        # the batch's spans share its number, the engine's step count
+        with tracing.span("serve.step", self.steps):
+            if tracing.enabled():
+                tracing.annotate("requests", [r.rid for r in batch])
+            return self._execute(batch, now)
+
+    def _execute(self, batch, now: float) -> bool:
+        """Run one admitted batch and answer its requests."""
+        n = len(batch)
         x = torch.stack([torch.as_tensor(r.image, dtype=torch.float32)
                          .to(self.device) for r in batch])
         t0 = time.perf_counter()

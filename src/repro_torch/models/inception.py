@@ -23,6 +23,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import backends as _backends
 from repro_torch.core import bitserial as bs
 from repro_torch.core import nc_layers as nc
@@ -613,29 +614,36 @@ def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
                  engine, records):
     _, r, s, m_, stride, pad = op
     wq, w_qp, bias = wpack[name]
-    acc, cycles, stats = nc.nc_conv2d(
-        actq, wq, act_qps, w_qp, stride, padding=pad, geom=geom,
-        layer_spec=spec, plan=plan, engine=engine, return_stats=True)
-    acc = acc.to(torch.int64)  # [B, E, F, M] int32 staging
+    with tracing.span("layer", name):
+        acc, cycles, stats = nc.nc_conv2d(
+            actq, wq, act_qps, w_qp, stride, padding=pad, geom=geom,
+            layer_spec=spec, plan=plan, engine=engine, return_stats=True)
     B = acc.shape[0]
     # §IV-D epilogue in-cache: integer bias add, ReLU, min/max tree, requant
-    sxw = [q.f32(qp.scale * w_qp.scale) for qp in act_qps]  # float32 products
-    sxw_t = torch.tensor(sxw, dtype=torch.float64, device=acc.device)
-    bias_q = torch.round(bias.to(torch.float64)[None, :] / sxw_t[:, None])
-    acc = torch.clamp_min(acc + bias_q.to(torch.int64)[:, None, None, :], 0)
+    with tracing.span("epilogue.bias_relu"):
+        acc = acc.to(torch.int64)  # [B, E, F, M] int32 staging
+        sxw = [q.f32(qp.scale * w_qp.scale) for qp in act_qps]  # f32 products
+        sxw_t = tracing.fetch(torch.tensor, sxw, dtype=torch.float64,
+                              device=acc.device)
+        bias_q = torch.round(bias.to(torch.float64)[None, :] / sxw_t[:, None])
+        acc = torch.clamp_min(acc + bias_q.to(torch.int64)[:, None, None, :],
+                              0)
     mn, mx, c_mm = nc.nc_minmax(acc.reshape(B, -1), bits=32, signed=True)
     cycles += int(c_mm)
-    mn, mx = mn.tolist(), mx.tolist()  # the two scalars per image
-    yq, out_qps = [], []
-    for b in range(B):
-        qp = q.choose_qparams(mn[b] * sxw[b], mx[b] * sxw[b])
-        yq.append(_requant_image(acc[b], sxw[b] / qp.scale,
-                                 int(qp.zero_point)))
-        out_qps.append(qp)
-    yq = torch.stack(yq)
-    cycles += B * plan.quant_passes * _REQUANT_PASS_CYCLES
-    live_out = max(int((yq[b] != int(out_qps[b].zero_point)).sum())
-                   for b in range(B))
+    with tracing.span("epilogue.requant"):
+        # the two scalars per image
+        mn, mx = tracing.fetch(mn.tolist), tracing.fetch(mx.tolist)
+        yq, out_qps = [], []
+        for b in range(B):
+            qp = q.choose_qparams(mn[b] * sxw[b], mx[b] * sxw[b])
+            yq.append(_requant_image(acc[b], sxw[b] / qp.scale,
+                                     int(qp.zero_point)))
+            out_qps.append(qp)
+        yq = torch.stack(yq)
+        cycles += B * plan.quant_passes * _REQUANT_PASS_CYCLES
+        live_out = max(
+            tracing.fetch(int, (yq[b] != int(out_qps[b].zero_point)).sum())
+            for b in range(B))
     # a quarantine re-plans mid-layer: price the plan the engine executed,
     # plus the exact per-pass price of each fault re-execution
     modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
@@ -698,11 +706,13 @@ def _nc_concat(outs, state):
 def _nc_apply_op(actq, act_qps, name, op, wpack, specs, plans, geom, const,
                  engine, records, state):
     if op[0] == "conv":
-        return _nc_run_conv(name, actq, act_qps, op, wpack, specs[name],
-                            plans[name], geom, const, engine, records)
+        with tracing.span("conv", name):
+            return _nc_run_conv(name, actq, act_qps, op, wpack, specs[name],
+                                plans[name], geom, const, engine, records)
     if op[0] in ("maxpool", "avgpool"):
-        return _nc_run_pool(name, actq, act_qps, op, specs[name], geom,
-                            const, records)
+        with tracing.span("pool", name):
+            return _nc_run_pool(name, actq, act_qps, op, specs[name], geom,
+                                const, records)
     if op[0] == "split":
         outs = []
         for i, sub in enumerate(op[1:]):
@@ -712,7 +722,8 @@ def _nc_apply_op(actq, act_qps, name, op, wpack, specs, plans, geom, const,
                                        wpack, specs, plans, geom, const,
                                        engine, records, state)
             outs.append((yq, qps))
-        return _nc_concat(outs, state)
+        with tracing.span("concat", name):
+            return _nc_concat(outs, state)
     raise ValueError(op)
 
 
@@ -739,21 +750,36 @@ def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
                                        wpack, specs, plans, geom, const,
                                        engine, records, state)
             outs.append((yq, qps))
-        actq, act_qps = _nc_concat(outs, state)
+        with tracing.span("concat", bname):
+            actq, act_qps = _nc_concat(outs, state)
         yield bname
-    # global average pool through the array, then FC as a 1x1 conv
+    with tracing.span("fc"):
+        state["logits"] = _nc_fc_tail(actq, act_qps, wpack, specs, plans,
+                                      geom, const, engine, records)
+    yield "FullyConnected"
+
+
+def _nc_fc_tail(actq, act_qps, wpack, specs, plans, geom, const, engine,
+                records):
+    """Global average pool through the array, then FC as a 1x1 conv;
+    returns the float logits."""
+    B = actq.shape[0]
     h = actq.shape[1]
-    actq, act_qps = _nc_run_pool("AvgPool", actq, act_qps,
-                                 ("avgpool", h, 1, "VALID"),
-                                 specs["AvgPool"], geom, const, records)
+    with tracing.span("pool", "AvgPool"):
+        actq, act_qps = _nc_run_pool("AvgPool", actq, act_qps,
+                                     ("avgpool", h, 1, "VALID"),
+                                     specs["AvgPool"], geom, const, records)
     actq = actq.reshape(B, -1)
     wq, w_qp, fc_bias = wpack["FullyConnected"]
     plan = plans["FullyConnected"]
-    acc, cycles, stats = nc.nc_fc(actq, wq[0, 0], act_qps, w_qp, geom=geom,
-                                  layer_spec=specs["FullyConnected"],
-                                  plan=plan, engine=engine, return_stats=True)
-    sxw = torch.tensor([q.f32(qp.scale * w_qp.scale) for qp in act_qps],
-                       dtype=torch.float32, device=acc.device)
+    with tracing.span("layer", "FullyConnected"):
+        acc, cycles, stats = nc.nc_fc(
+            actq, wq[0, 0], act_qps, w_qp, geom=geom,
+            layer_spec=specs["FullyConnected"], plan=plan, engine=engine,
+            return_stats=True)
+    sxw = tracing.fetch(
+        torch.tensor, [q.f32(qp.scale * w_qp.scale) for qp in act_qps],
+        dtype=torch.float32, device=acc.device)
     # two separate float32 operations, as the reference computes them
     logits = acc.to(torch.float32) * sxw[:, None]
     logits = logits + fc_bias[None, :]
@@ -771,8 +797,7 @@ def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
         integrity=stats.integrity, reexec_passes=stats.reexec_passes,
         faults_detected=stats.faults_detected,
         quarantined_slices=stats.quarantined_slices))
-    state["logits"] = logits
-    yield "FullyConnected"
+    return logits
 
 
 def _merge_chunk_records(per_chunk: list[list[NCLayerReport]],
