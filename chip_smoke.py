@@ -6,9 +6,9 @@ Phases (any failure exits non-zero; no phase catches its own failure;
 results go to lines before the last; each phase prints its wall):
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: compile the four kernels of ``src/repro_torch/csrc/``
+2. build: compile the five kernels of ``src/repro_torch/csrc/``
    (``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``, ``quant_gemm.cu``,
-   ``flash_attention.cu``) with nvcc, one process per source, in parallel,
+   ``flash_attention.cu``, ``minmax_rows.cu``) with nvcc, one process per source, in parallel,
    and print each one's registers and spills;
 3. each kernel against its plain torch version on the card: the 8-bit
    bit-serial kernel at random ragged shapes (n_bits 1..8, signed and
@@ -35,11 +35,15 @@ results go to lines before the last; each phase prints its wall):
    1e-5), and at the 21 served shapes of the audio, vision, MoE and
    hybrid families (MHA 32/32 and GQA 25/5 at D = 64; GQA 48/8, MHA
    16/16, GQA 56/8 at D = 128); the build phase prints the tiles each
-   flash route runs;
+   flash route runs; ``minmax_rows`` (the §IV-D min/max) against its
+   plain version, the bit-serial walk, at the 94 convolutions' output
+   shapes at batch 4 (``bits=32``, signed), byte-identical (the largest
+   difference printed), one launch count a call;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
-   ``gemm`` backend native with 0 delegations and the kernel launched;
+   ``gemm`` backend native with 0 delegations and the kernel launched,
+   ``minmax_rows`` 94 times a batch's forward (one a convolution);
 5. the 4-bit path at full width: ``nc_conv2d`` with 4-bit QuantParams at
    three full-width conv layers' shapes (batch 2) and ``nc_fc`` at
    2048 -> 1001, through the ``gemm`` backend; the W4A4 kernel launched and
@@ -53,8 +57,8 @@ results go to lines before the last; each phase prints its wall):
    phase 4's, ``detected == corrupt_attempts`` with faults injected; prints
    the fault ledger, the checksum and re-execution cycles, the CSR bytes
    and the wall time;
-7. one batch-2 full-width forward with the kernel and one with the plain
-   version: logits, every layer report and the reports'
+7. one batch-2 full-width forward with the kernels and one with
+   kernel 1 and ``minmax_rows`` swapped for their plain versions: logits, every layer report and the reports'
    ``NCForwardReport.summary()`` tables byte-identical (the table printed);
    the correlation with the float forward is printed for information;
    then the forward's
@@ -251,17 +255,24 @@ results go to lines before the last; each phase prints its wall):
     ``flash_attention`` at the families' 21 served shapes and
     ``bitserial_matmul`` at the 4-bit PTQ sites' shapes (signed planes,
     n_bits 4, float epilogue) on lines of their own, outside the kernels
-    line's sums; then each kernel's registers a thread and spill bytes
-    from its build report;
-15. one JSON line listing the four kernels (launches summed over every
+    line's sums; ``minmax_rows`` at batch 64 on the three largest
+    convolution outputs beside its bound (bytes), the walk and
+    ``torch.aminmax`` of the int32 low words; then each kernel's
+    registers a thread and spill bytes from its build report;
+15. one JSON line listing the five kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs,
     the 8-bit ``nc_dot``, the examples' quickstart and Neural Cache
     serving and phase 13's forwards and real fleet for
     ``bitserial_matmul``, the 4-bit path and the 4-bit
     ``nc_dot`` for ``bitserial_matmul_a4``, the PTQ and the quickstart for
     ``quant_matmul``, the seven served LMs, the two int8-cache runs, the
-    sharded prefills and the LM demo for ``flash_attention``), then the card
-    line, then
+    sharded prefills and the LM demo for ``flash_attention``, and the
+    Inception serving, stream-chunk and fleet runs, the examples' Neural
+    Cache serving and phase 13's forwards and real fleet for
+    ``minmax_rows``, each counted from zero just before its run and the
+    full-width ones held to 94 launches a forward, one a convolution;
+    ``max_abs_err`` is each kernel's largest measured difference from its
+    plain version), then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -301,6 +312,9 @@ CONV_LAYERS = [("Conv2d_2b_3x3", 147, 32, 3, 64, 1, "SAME"),
                ("Conv2d_4a_3x3", 73, 80, 3, 192, 1, "VALID"),
                ("Mixed_6a_b0_0", 35, 288, 3, 384, 2, "VALID")]
 FAULT_PROFILE = "seed=7,filter=0.05,act=0.01,compute=0.01,stuck=3"
+# the sources of src/repro_torch/csrc/ that cuda_build.build_all compiles
+KERNELS = ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
+           "flash_attention", "minmax_rows")
 
 
 def log(msg: str) -> None:
@@ -323,6 +337,36 @@ def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
             a.element_size()]
         return torch.equal(a.view(ity), b.view(ity))
     return torch.equal(a, b)
+
+
+FULL_CONVS = 94  # convolutions of inception.FULL: one min/max launch each
+# minmax_rows launches of the main-path runs, by path, each counted from a
+# zero set just before it (phase 3's hold, phase 7's comparison and phase
+# 14's times are checks, not main-path runs, and stay out)
+MINMAX_BY_PATH: dict[str, int] = {}
+
+
+def _minmax():
+    """The min/max kernel's wrapper, whose ``launches`` the main-path
+    phases set to 0 where they set ``bitserial_matmul``'s."""
+    from repro_torch.kernels import minmax_rows as mm
+    return mm.minmax_rows
+
+
+def _minmax_take(path: str, dev, forwards: int | None = None) -> int:
+    """The min/max kernel's launches since ``path``'s zero set, added to
+    ``MINMAX_BY_PATH``; with ``forwards`` (full-width forwards the path
+    ran on ``dev``) held on the card to one launch a convolution,
+    ``FULL_CONVS`` a forward (CPU tensors take the walk and launch
+    nothing)."""
+    n = _minmax().launches
+    if (forwards is not None and dev.type == "cuda"
+            and n != FULL_CONVS * forwards):
+        raise AssertionError(f"{path}: {n} minmax_rows launches for "
+                             f"{forwards} full-width forwards, want "
+                             f"{FULL_CONVS} a forward")
+    MINMAX_BY_PATH[path] = MINMAX_BY_PATH.get(path, 0) + n
+    return n
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -622,16 +666,20 @@ def phase_serve(inception, serve, backends, bsm, params, images, dev, cfg):
     for i, img in enumerate(images):
         engine.submit(serve.NCRequest(rid=i, image=img))
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     backends.dispatch_stats_clear()
     t0 = time.perf_counter()
     done = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = bsm.bitserial_matmul.launches
+    batches = engine.stats()["batch_histogram"]
+    mm_launches = _minmax_take("serve", dev, sum(batches.values()))
     gemm = backends.dispatch_stats()["gemm"]
     log(f"[serve] {len(done)} full-width requests in {wall:.2f} s "
-        f"(batches {engine.stats()['batch_histogram']}); gemm dispatch "
-        f"{gemm}; kernel launches {launches}")
+        f"(batches {batches}); gemm dispatch {gemm}; kernel launches "
+        f"{launches}; minmax_rows launches {mm_launches} ({FULL_CONVS} a "
+        f"forward)")
     if len(done) != len(images) or engine.failed:
         raise AssertionError(f"served {len(done)} of {len(images)}: "
                              f"{engine.errors}")
@@ -818,7 +866,7 @@ def phase_faulted_serve(inception, serve, faults, nc_layers, backends, bsm,
     return wall, sums["reexec_passes"]
 
 
-def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
+def phase_plain_forward(inception, ops, bsm, mm, params, x, dev, cfg):
     wpack = inception.prepare_conv_weights(params, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -826,9 +874,10 @@ def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
                                   device=dev)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    saved = ops.bitserial_matmul_exact
+    saved = ops.bitserial_matmul_exact, ops.minmax_rows
     ops.bitserial_matmul_exact = _exact_plain(bsm)
-    launches = bsm.bitserial_matmul.launches
+    ops.minmax_rows = mm.minmax_rows_plain
+    launches = bsm.bitserial_matmul.launches, mm.minmax_rows.launches
     try:
         t0 = time.perf_counter()
         lp, rp = inception.nc_forward(params, x, config=cfg, wpack=wpack,
@@ -836,9 +885,9 @@ def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
     finally:
-        ops.bitserial_matmul_exact = saved
-    if bsm.bitserial_matmul.launches != launches:
-        raise AssertionError("the plain forward launched the kernel")
+        ops.bitserial_matmul_exact, ops.minmax_rows = saved
+    if (bsm.bitserial_matmul.launches, mm.minmax_rows.launches) != launches:
+        raise AssertionError("the plain forward launched a kernel")
     if not bits_equal(lk, lp):
         raise AssertionError("full-width logits: kernel != plain")
     if rk != rp:
@@ -856,6 +905,88 @@ def phase_plain_forward(inception, ops, bsm, params, x, dev, cfg):
         f"plain {t_plain:.2f} s; logits and {len(rk.layers)} layer reports "
         f"byte-identical; corr(emulated, float) = {corr:.4f} (information)")
     return t_kernel, wpack
+
+
+MINMAX_B = 4  # the batch of the min/max kernel's hold (the engine's default)
+MINMAX_TIME_B = 64  # the batch of its times (the benchmark's cells)
+
+
+def _minmax_operands(K: int, batch: int, g) -> torch.Tensor:
+    """int64 ``[batch, K]`` on the card: random int32 low words under
+    random high bits, which the main path's ``bits=32`` mask drops."""
+    return torch.randint(-(1 << 40), 1 << 40, (batch, K), generator=g,
+                         device=g.device, dtype=torch.int64)
+
+
+def _conv_outputs(inception):
+    """``(name, K)`` of the 94 convolutions of ``inception.FULL``: the
+    values per image that each one's min/max reads."""
+    return [(s.name, s.E * s.E * s.M)
+            for s in inception.inception_v3_specs(inception.FULL)
+            if s.kind == "conv"]
+
+
+def phase_minmax(inception, mm, dev) -> int:
+    """The min/max kernel against its plain version (the bit-serial walk,
+    on the card too) at the 94 convolutions' output shapes at batch
+    ``MINMAX_B``, with the main path's ``bits=32, signed=True``: mins and
+    maxs byte-identical, one count a call.  Returns the largest absolute
+    difference of a kernel value from the walk's (launches here are not
+    main-path counts)."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    shapes = _conv_outputs(inception)
+    if len(shapes) != FULL_CONVS:
+        raise AssertionError(f"{len(shapes)} convolutions, want {FULL_CONVS}")
+    before = mm.minmax_rows.launches
+    worst = 0
+    for name, K in shapes:
+        x = _minmax_operands(K, MINMAX_B, g)
+        got = mm.minmax_rows(x, 32, True)
+        want = mm.minmax_rows_plain(x, 32, True)
+        worst = max(worst, *(int((a - b).abs().max()) for a, b in
+                             zip(got, want)))
+        if not all(bits_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"minmax_rows at {name} [{MINMAX_B}, {K}]: "
+                                 f"kernel != walk, max diff {worst}")
+    launches = mm.minmax_rows.launches - before
+    if launches != len(shapes):
+        raise AssertionError(f"minmax_rows: {launches} launches for "
+                             f"{len(shapes)} calls")
+    log(f"[minmax] kernel == walk at the {len(shapes)} convolutions' output "
+        f"shapes at batch {MINMAX_B} ({sum(k for _, k in shapes)} values an "
+        f"image), {launches} launches, max diff {worst}")
+    return worst
+
+
+def phase_times_minmax(inception, mm, dev):
+    """The min/max kernel's device time at batch ``MINMAX_TIME_B`` on the
+    three largest convolution outputs, beside its bound (the int64 values
+    read once and two int64 a row written, at 3.35 TB/s), the walk's time
+    and ``torch.aminmax`` of the int32 low words (the same function at
+    ``bits=32, signed=True``) as the yardstick."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    rows = []
+    for name, K in sorted(_conv_outputs(inception), key=lambda r: -r[1])[:3]:
+        x = _minmax_operands(K, MINMAX_TIME_B, g)
+        ms = graph_ms(lambda: mm.minmax_rows(x, 32, True))
+        eager_ms = cuda_ms(lambda: mm.minmax_rows(x, 32, True))
+        plain_ms = cuda_ms(lambda: mm.minmax_rows_plain(x, 32, True), reps=1,
+                           warmup=1)
+        lib_ms = graph_ms(lambda: torch.aminmax(x.to(torch.int32), dim=1))
+        lib = torch.aminmax(x.to(torch.int32), dim=1)
+        if not all(torch.equal(a, b.to(torch.int64)) for a, b in
+                   zip(mm.minmax_rows(x, 32, True), lib)):
+            raise AssertionError(f"torch.aminmax yardstick disagrees at "
+                                 f"{name}")
+        bound = _bound(8 * MINMAX_TIME_B * K + 16 * MINMAX_TIME_B, 0, 1.0)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, **bound))
+        log(f"[time-minmax] {name} [{MINMAX_TIME_B}, {K}] (chunks "
+            f"{mm.minmax_chunks(MINMAX_TIME_B, K)}): kernel {ms:.4f} ms "
+            f"(eager {eager_ms:.4f} ms), {bound['bound_ms'] / ms:.1%} of the "
+            f"bound {bound['bound_ms']:.5f} ms (bytes), walk {plain_ms:.2f} "
+            f"ms, torch.aminmax int32 {lib_ms:.4f} ms")
+    return rows
 
 
 def phase_split(inception, params, x, wpack, dev, cfg):
@@ -921,6 +1052,7 @@ def phase_stream_chunk(inception, bsm, params, x, served, t_forward, dev,
     of every conv and FC layer equal to the chunk count; returns the
     bitserial_matmul launches of the run."""
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, report = inception.nc_forward(params, x, config=cfg,
@@ -929,6 +1061,7 @@ def phase_stream_chunk(inception, bsm, params, x, served, t_forward, dev,
     wall = time.perf_counter() - t0
     launches = bsm.bitserial_matmul.launches
     n_chunks = x.shape[0]
+    _minmax_take("stream-chunk", dev, n_chunks)  # a forward a chunk
     loads = {lr.filter_loads for lr in report.layers
              if lr.kind in ("conv", "fc")}
     log(f"[stream-chunk] batch {x.shape[0]} full width, stream_chunk=1: "
@@ -980,6 +1113,7 @@ def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
     for i, img in enumerate(images):
         orch.submit(serve.NCRequest(rid=i, image=img))
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = orch.run()
@@ -987,6 +1121,7 @@ def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
     wall = time.perf_counter() - t0
     launches = bsm.bitserial_matmul.launches
     s = orch.stats()
+    _minmax_take("fleet", dev, sum(s["batch_histogram"].values()))
     log(f"[fleet] {len(done)} full-width requests over "
         f"{[e.name for e in engines]} (batch caps "
         f"{[e.batch_cap for e in engines]}) in {wall:.2f} s; dispatched "
@@ -3717,11 +3852,13 @@ def phase_ex_serve_nc(serve_quantized, inception, backends, ops, bsm,
                                    config=cfg, device=dev)
     images = serve_quantized.nc_images(cfg, EX_NC_REQUESTS)
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     backends.dispatch_stats_clear()
     res = serve_quantized.main_neural_cache(
         params, cfg, images, EX_SLO_MS, EX_FAULTS, compressed=True,
         warmup_replan=True, device=dev)
     launches = bsm.bitserial_matmul.launches
+    _minmax_take("examples serve-nc", dev)  # reduced width
     gemm = backends.dispatch_stats()["gemm"]
     fs, s = res["faults"], res["stats"]
     if len(res["done"]) != EX_NC_REQUESTS or s["failed"]:
@@ -4006,10 +4143,12 @@ def phase_sched(sched_breakdown, ops, bsm, card, dev) -> int:
     stem) byte-identical to the same forward through the plain versions.
     Returns the bit-serial kernel's launches in the measuring forwards."""
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     kernel = {}
     cal_walls = sched_breakdown.calibration_walls(dev, logits=kernel)
     serial, overlapped = sched_breakdown.measure_overlap(dev, logits=kernel)
     launches = bsm.bitserial_matmul.launches
+    _minmax_take("sched", dev)  # reduced widths
     cal = min(cal_walls["dense"])
     ws, wo, spread = sched_breakdown.overlap_gate(serial, overlapped)
     log(f"[sched] on {card}: calibration wall {cal:.4f} s (batch-4 "
@@ -4064,10 +4203,12 @@ def phase_replay(traffic_replay, serve, inception, ops, bsm, params,
     for r in traffic_replay.run_quick():
         log(f"[replay] {r}")
     bsm.bitserial_matmul.launches = 0
+    _minmax().launches = 0
     stats = {}
     line = traffic_replay._real_fleet_bitidentity(
         params, cfg, images, served, device=dev, stats=stats)
     launches = bsm.bitserial_matmul.launches
+    _minmax_take("replay", dev, sum(stats["forwards"].values()))
     x = torch.from_numpy(np.stack(images)).to(dev)
     saved = ops.bitserial_matmul_exact
     ops.bitserial_matmul_exact = exact = _exact_plain(bsm)
@@ -4123,8 +4264,7 @@ def phase_registers(cuda_build):
     """Each kernel's registers a thread and spill bytes over its entry
     functions (template instantiations), from the build's ``-Xptxas -v``
     report."""
-    for name in ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
-                 "flash_attention"):
+    for name in KERNELS:
         report = cuda_build.build_log(name)
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = [int(a) + int(b) for a, b in re.findall(
@@ -4169,6 +4309,7 @@ def main() -> int:
     from repro_torch.kernels import bitserial_matmul as bsm
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import minmax_rows as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.launch import orchestrator, serve
@@ -4191,8 +4332,7 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}")
     timed("build", cuda_build.build_all)
-    for name in ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
-                 "flash_attention"):
+    for name in KERNELS:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
@@ -4205,6 +4345,7 @@ def main() -> int:
     worst_fa = max(timed("kernel-fa", phase_flash_kernel, fa, dev))
     worst_fa = max(worst_fa, *timed("kernel-fa-families",
                                     phase_flash_family_shapes, fa, dev))
+    worst_mm = timed("kernel-minmax", phase_minmax, inception, mm, dev)
     cfg = inception.FULL
     params = _inception_params(inception, cfg, dev)
     rng = np.random.default_rng(0)
@@ -4219,7 +4360,7 @@ def main() -> int:
         backends, bsm, params, images[:B], served, dev, cfg)
     x = torch.from_numpy(np.stack(images[:B])).to(dev)
     t_forward, wpack = timed("forward", phase_plain_forward, inception, ops,
-                             bsm, params, x, dev, cfg)
+                             bsm, mm, params, x, dev, cfg)
     log(f"[faults] checked, compressed, faulted batch-{B} serving "
         f"{faulted_wall:.2f} s against the clean batch-{B} forward "
         f"{t_forward:.2f} s ({reexec} passes re-run)")
@@ -4305,6 +4446,10 @@ def main() -> int:
         f"{sum(r['library_ms'] for r in rows_fam):.4f} ms, bound "
         f"{sum(r['bound_ms'] for r in rows_fam):.5f} ms")
     timed("times-ptq4", phase_times_ptq4, bsm, dev)
+    launches_mm = sum(MINMAX_BY_PATH.values())
+    log(f"[minmax] minmax_rows launches by main-path run: {MINMAX_BY_PATH} "
+        f"(total {launches_mm})")
+    rows_mm = timed("times-minmax", phase_times_minmax, inception, mm, dev)
     phase_registers(cuda_build)
     kernels = [
         _kernel_entry("bitserial_matmul",
@@ -4322,6 +4467,8 @@ def main() -> int:
                       "src/repro_torch/csrc/flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:88",
                       launches_fa, worst_fa, rows_fa),
+        _kernel_entry("minmax_rows", "src/repro_torch/csrc/minmax_rows.cu",
+                      None, launches_mm, worst_mm, rows_mm),
     ]
     log(f"[wall] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -771,7 +771,8 @@ def bitserial_minmax(planes):
 
     Returns ``((min, max), cycles)`` with the lane axis reduced to 1.
     Zero-padded lanes fold a 0 into the tree: callers that need exact
-    minima pad rows with copies of a real lane (see ``nc_layers.nc_minmax``).
+    minima pad rows with copies of a real lane (see
+    ``nc_layers.minmax_walk``).
     """
     packed_in = isinstance(planes, PackedPlanes)
     pp = planes if packed_in else pack_lanes(planes, row_align=True)

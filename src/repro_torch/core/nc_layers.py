@@ -55,6 +55,7 @@ __all__ = [
     "nc_maxpool2d",
     "nc_avgpool2d",
     "nc_minmax",
+    "minmax_walk",
     "nc_relu_requant",
     "nc_fc",
     "ConvStats",
@@ -832,29 +833,50 @@ def nc_avgpool2d(x_q: torch.Tensor, window: int, stride: int,
     return (out if batched else out[0]).to(torch.uint8), cycles
 
 
+def minmax_walk(rows: torch.Tensor, bits: int,
+                signed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bit-serial log tree of :func:`nc_minmax` in packed word space,
+    on ``rows``' device: per row of int64 ``[rows, K]`` the min and max of
+    the ``bits``-wide values, int64 ``[rows]``.  Rows are padded to the
+    next power of two with copies of their first lane (neutral for both);
+    ``signed`` biases two's complement values by ``2^(bits-1)`` on the way
+    in and out.  The CPU's route, and the plain version of the card's
+    kernel (``kernels.minmax_rows``)."""
+    K = rows.shape[-1]
+    bias = (1 << (bits - 1)) if signed else 0
+    u = (rows + bias) & ((1 << bits) - 1)
+    P = 1 << max(0, (K - 1).bit_length())
+    padded = u[:, :1].expand(u.shape[0], P).clone()  # neutral pad
+    padded[:, :K] = u
+    pp = bs.pack_values(padded, bits, row_align=True)
+    (mn_pp, mx_pp), _ = bs.bitserial_minmax(pp)
+    return (bs.unpack_values(mn_pp).reshape(-1) - bias,
+            bs.unpack_values(mx_pp).reshape(-1) - bias)
+
+
 def nc_minmax(x_q: torch.Tensor, bits: int = 32, signed: bool = False):
-    """§IV-D in-cache dynamic range: min AND max over the LAST axis via the
-    bit-serial log tree, in packed word space.  Rows are pre-padded to the
-    next power of two with copies of their first lane; ``signed`` biases
-    ``bits``-wide two's complement values by ``2^(bits-1)`` on the way in
-    and out (+2 cycles).  Returns ``(mins, maxs, cycles)`` shaped like the
-    leading axes."""
+    """§IV-D in-cache dynamic range: min AND max over the LAST axis of
+    ``bits``-wide values, two's complement when ``signed``.  Returns
+    ``(mins, maxs, cycles)`` shaped like the leading axes.
+
+    On a CUDA tensor the values come from ``kernels.ops.minmax_rows``, one
+    hand-written kernel that reads each value once; on a CPU tensor from
+    :func:`minmax_walk`.  Both are exact, so the cycles are charged from
+    the shape: the tree's halving steps over the last axis, plus 2 for the
+    bias on the way in and out when ``signed``."""
     with tracing.span("minmax"):
         lead = tuple(x_q.shape[:-1])
         K = x_q.shape[-1] if x_q.ndim else 1
         rows = x_q.reshape(-1, K).to(torch.int64)
-        bias = (1 << (bits - 1)) if signed else 0
-        u = (rows + bias) & ((1 << bits) - 1)
-        P = 1 << max(0, (K - 1).bit_length())
-        padded = u[:, :1].expand(u.shape[0], P).clone()  # neutral pad
-        padded[:, :K] = u
-        pp = bs.pack_values(padded, bits, row_align=True)
         with tracing.span("minmax.tree"):
-            (mn_pp, mx_pp), cycles = bs.bitserial_minmax(pp)
-        mn = bs.unpack_values(mn_pp).reshape(-1) - bias
-        mx = bs.unpack_values(mx_pp).reshape(-1) - bias
-        if signed:
-            cycles += 2
+            if rows.is_cuda:
+                from repro_torch.kernels import ops
+
+                tracing.annotate("route", "kernel")
+                mn, mx = ops.minmax_rows(rows.contiguous(), bits, signed)
+            else:
+                mn, mx = minmax_walk(rows, bits, signed)
+        cycles = bs.minmax_cycles(K, bits) + (2 if signed else 0)
         return mn.reshape(lead), mx.reshape(lead), cycles
 
 

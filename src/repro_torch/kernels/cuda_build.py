@@ -49,6 +49,8 @@ _SIGNATURES = {
     # q, k, v, out, is_bf16, B, H, Hkv, Tq, Tk, D, causal, scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         _P],
+    # x, mins, maxs, workspace, rows, K, chunks, bits, signed, stream
+    "minmax_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()

@@ -5,8 +5,10 @@
 kernel on nibble-packed activations.  :func:`quant_matmul` is the W8A8 GEMM
 of the post-training-quantization flow (``quant/ptq.py``) and
 :func:`flash_attention` the tiled attention of the LM's full prefill
-(``models/layers.py``).  Each launches its Hopper kernel for CUDA tensors
-and runs the kernel's plain version for CPU tensors.  So do the
+(``models/layers.py``), and :func:`minmax_rows` the per-row min and max of
+the §IV-D dynamic-range tree (``core/nc_layers.py`` ``nc_minmax``).  Each
+launches its Hopper kernel for CUDA tensors and runs the kernel's plain
+version for CPU tensors.  So do the
 reference's scaled entry points :func:`bitserial_matmul` (signed planes,
 byte-packed or an unpacked plane stack) and :func:`bitserial_matmul_a4`
 (nibble-packed activations from :func:`pack_activations`);
@@ -16,10 +18,11 @@ as the reference's is its plain XLA lowering.
 Each goes through a ``torch.library`` custom op (``repro_torch::*``) with a
 fake implementation, which is what ``meta`` operands (the dry run) run:
 nothing is launched and an empty result of the output's shape comes back.
-Its FLOPs are registered in ``torch.utils.flop_counter``'s registry, so a
-FLOP counter or a dispatch mode (``repro_torch.distributed.trace_analysis``)
-charges a kernel's launch as one op with the FLOPs of the product it
-computes.
+The products' FLOPs are registered in ``torch.utils.flop_counter``'s
+registry, so a FLOP counter or a dispatch mode
+(``repro_torch.distributed.trace_analysis``) charges a kernel's launch as
+one op with the FLOPs of the product it computes; the min/max computes
+no product and counts none.
 """
 from __future__ import annotations
 
@@ -28,11 +31,13 @@ from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import bitserial_matmul as _bsm
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import minmax_rows as _mm
 from repro_torch.kernels import quant_matmul as _qm
 
 __all__ = ["bitserial_matmul_exact", "bitserial_matmul",
            "bitserial_matmul_a4", "quant_matmul", "quant_matmul_xla",
-           "flash_attention", "pack_weights", "pack_activations"]
+           "flash_attention", "minmax_rows", "pack_weights",
+           "pack_activations"]
 
 
 @torch.library.custom_op("repro_torch::bitserial_matmul_exact",
@@ -181,3 +186,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Tiled GQA attention with an online softmax
     (:mod:`repro_torch.kernels.flash_attention`)."""
     return _flash_op(q, k, v, causal)
+
+
+@torch.library.custom_op("repro_torch::minmax_rows", mutates_args=())
+def _minmax_op(x: torch.Tensor, bits: int,
+               signed: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _mm.minmax_rows(x, bits, signed)
+
+
+@_minmax_op.register_fake
+def _(x, bits, signed):
+    return (x.new_empty((x.shape[0],), dtype=torch.int64),
+            x.new_empty((x.shape[0],), dtype=torch.int64))
+
+
+def minmax_rows(x: torch.Tensor, bits: int = 32,
+                signed: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row ``(mins, maxs)`` int64 ``[rows]`` of ``bits``-wide values in
+    an int64 ``[rows, K]`` tensor, two's complement when ``signed``
+    (:mod:`repro_torch.kernels.minmax_rows`)."""
+    return _minmax_op(x, bits, signed)
