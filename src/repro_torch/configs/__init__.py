@@ -4,7 +4,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import ModelConfig, SHAPES, ShapeSpec
+from repro_torch.configs.base import (MixedLayerConfig, ModelConfig, SHAPES,
+                                      ShapeSpec)
 
 from repro_torch.configs.musicgen_large import CONFIG as _musicgen
 from repro_torch.configs.internvl2_26b import CONFIG as _internvl
@@ -16,6 +17,7 @@ from repro_torch.configs.mamba2_2_7b import CONFIG as _mamba2
 from repro_torch.configs.hymba_1_5b import CONFIG as _hymba
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.arctic_480b import CONFIG as _arctic
+from repro_torch.configs.granite_4_0_h_small import CONFIG as _granite
 
 REGISTRY: dict[str, ModelConfig] = {
     c.name: c
@@ -27,11 +29,16 @@ REGISTRY: dict[str, ModelConfig] = {
 
 ARCH_IDS = tuple(REGISTRY)
 
+# configurations of the port alone (``REGISTRY`` stays the reference's)
+PORT_REGISTRY: dict[str, ModelConfig] = {c.name: c for c in [_granite]}
+
 
 def get_config(name: str) -> ModelConfig:
-    if name not in REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
-    return REGISTRY[name]
+    cfg = REGISTRY.get(name) or PORT_REGISTRY.get(name)
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; available: "
+                       f"{sorted(REGISTRY) + sorted(PORT_REGISTRY)}")
+    return cfg
 
 
 def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
@@ -58,6 +65,11 @@ def reduced_config(cfg: ModelConfig, **overrides) -> ModelConfig:
         small.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
     if cfg.global_layers:
         small.update(global_layers=(0,), attn_window=32)
+    if cfg.layer_types:
+        # both kinds, in the published order's sense: Mamba around attention
+        small.update(n_layers=3, layer_types=("mamba", "attention", "mamba"),
+                     n_experts=16, top_k=4, shared_ff=96,
+                     experts_held=2 if cfg.experts_held else 0)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)
 

@@ -7,7 +7,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["ModelConfig", "SHAPES", "ShapeSpec"]
+__all__ = ["ModelConfig", "MixedLayerConfig", "SHAPES", "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +63,19 @@ class ModelConfig:
     remat: str = "none"  # none | full | dots  (activation checkpoint policy)
     attn_chunk_q: int = 1024  # flash-attention tile sizes (pure-JAX scan)
     attn_chunk_kv: int = 1024
+
+    # --- what MixedLayerConfig makes fields: class attributes here, so that
+    # the reference's configs keep exactly the reference's fields ----------
+    layer_types = ()  # per-layer mixer ("mamba" | "attention"); () = family's
+    shared_ff = 0  # hidden of a shared SwiGLU expert beside the routed ones
+    experts_held = 0  # routed experts held here (0 = all n_experts)
+    expert_share = 0  # held experts are [share * held, (share + 1) * held)
+    embedding_multiplier = 1.0  # h = multiplier * E[tokens]
+    residual_multiplier = 1.0  # h += multiplier * sublayer(norm(h))
+    attention_multiplier = 0.0  # attention's score scale (0: 1/sqrt(hd))
+    logits_scaling = 1.0  # logits = head(h) / logits_scaling
+    position_embedding = "rope"  # rope | nope (no positional encoding)
+    norm_eps = 1e-6  # every RMSNorm's epsilon, the mixers' gated one too
 
     # ---- derived -----------------------------------------------------------
     @property
@@ -136,6 +149,81 @@ class ModelConfig:
         expert = 3 * d * ff if self.act == "swiglu" else 2 * d * ff
         inactive = self.n_layers * (self.n_experts - self.top_k) * expert
         return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedLayerConfig(ModelConfig):
+    """A decoder whose layers differ in kind, after Hugging Face's
+    ``granitemoehybrid``: layer ``i``'s mixer is ``layer_types[i]``, a
+    Mamba-2 mixer or (position-free where ``position_embedding`` is
+    ``"nope"``) attention, never both; every layer's MLP is the MoE, with a
+    shared SwiGLU of ``shared_ff`` beside it, of which this chip holds
+    ``experts_held`` routed experts (share ``expert_share`` of an
+    expert-parallel deployment); and the four multipliers scale the
+    embedding, each residual branch, the attention scores and the logits.
+    ``family`` is ``"hybrid"``: both kinds of decode state live side by
+    side, the KV caches on the attention layers and the SSM state on the
+    Mamba layers."""
+    # fields; each default is ModelConfig's class attribute of the name
+    layer_types: tuple[str, ...]
+    shared_ff: int
+    experts_held: int
+    expert_share: int
+    embedding_multiplier: float
+    residual_multiplier: float
+    attention_multiplier: float
+    logits_scaling: float
+    position_embedding: str
+    norm_eps: float
+
+    def __post_init__(self):
+        if len(self.layer_types) != self.n_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"layer_types must name 'mamba' or 'attention' "
+                             f"for each of the {self.n_layers} layers")
+        held = self.experts_held or self.n_experts
+        if self.n_experts % held or not (
+                0 <= self.expert_share < self.n_experts // held):
+            raise ValueError(f"{held} held experts and share "
+                             f"{self.expert_share} do not tile "
+                             f"{self.n_experts} experts")
+
+    @property
+    def has_attention(self) -> bool:
+        return "attention" in self.layer_types
+
+    @property
+    def has_ssm(self) -> bool:
+        return "mamba" in self.layer_types
+
+    @property
+    def n_held(self) -> int:
+        return self.experts_held or self.n_experts
+
+    def param_count(self) -> int:
+        """Parameters held here: embedding (tied), each layer's mixer, norms,
+        router, shared expert and held experts, the final norm."""
+        d, ff, v = self.d_model, self.d_ff, self.vocab_size
+        hd, H, Hkv = self.hd, self.n_heads, self.n_kv_heads
+        di, N, nh = self.d_inner, self.ssm_state, self.ssm_heads
+        attn = d * (H * hd) + 2 * d * (Hkv * hd) + (H * hd) * d
+        mamba = (d * (2 * di + 2 * N + nh) + (self.ssm_conv + 1)
+                 * (di + 2 * N) + 3 * nh + di + di * d)
+        mlp = (d * self.n_experts + 3 * d * self.shared_ff
+               + self.n_held * 3 * d * ff + 2 * d)
+        n = v * d + d + self.n_layers * mlp
+        n += sum(attn if t == "attention" else mamba
+                 for t in self.layer_types)
+        if not self.tie_embeddings:
+            n += v * d
+        return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches here: its routed experts among the
+        held ones, on average ``top_k * held / n_experts`` a layer."""
+        expert = 3 * self.d_model * self.d_ff
+        idle = self.n_held - self.top_k * self.n_held / self.n_experts
+        return int(self.param_count() - self.n_layers * idle * expert)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -4,7 +4,8 @@ its plain version.
 ``q`` is ``[B, H, Tq, D]``, ``k`` and ``v`` ``[B, Hkv, Tk, D]`` (bfloat16 or
 float32, one dtype); query head ``h`` reads KV head ``h // (H // Hkv)``.
 The arithmetic is the TPU kernel's (``repro.kernels.flash_attention``):
-q, k and v taken to float32, scores scaled by ``1/sqrt(D)``, the causal
+q, k and v taken to float32, scores scaled by ``1/sqrt(D)`` (or by the
+caller's ``scale``: Granite's attention multiplier, say), the causal
 mask ``kpos <= qpos`` counted from 0 for both, masked scores at
 ``NEG_INF = -1e30``, an online softmax over KV tiles with a running max and
 sum in float32, and ``acc / max(l, 1e-30)`` returned in q's dtype.  Unlike
@@ -62,7 +63,8 @@ def _scale(D: int) -> float:
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, bq: int = DEFAULT_BQ,
-                          bk: int = DEFAULT_BK) -> torch.Tensor:
+                          bk: int = DEFAULT_BK,
+                          scale: float | None = None) -> torch.Tensor:
     """The same function as :func:`flash_attention` in plain torch, on the
     operands' device: the online recurrence over KV tiles of ``bk`` keys,
     query rows in tiles of ``bq`` (memory only: rows are independent).  KV
@@ -70,7 +72,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing (scores at NEG_INF give p = 0 and a rescale of 1)."""
     B, H, Hkv, Tq, Tk, D = _check(q, k, v)
     G = H // Hkv
-    scale = torch.tensor(_scale(D), dtype=torch.float32, device=q.device)
+    scale = torch.tensor(_scale(D) if scale is None else scale,
+                         dtype=torch.float32, device=q.device)
     qf = q.to(torch.float32).reshape(B, Hkv, G, Tq, D)
     kf, vf = k.to(torch.float32), v.to(torch.float32)
     out = torch.empty((B, Hkv, G, Tq, D), dtype=torch.float32,
@@ -103,8 +106,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Tiled attention (see the module docstring).  CUDA tensors launch the
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Tiled attention (see the module docstring), the scores scaled by
+    ``scale`` (None: ``1/sqrt(D)``).  CUDA tensors launch the
     Hopper kernel; CPU tensors run :func:`flash_attention_plain`.  The
     kernel has no backward, so under grad mode an operand that requires
     grad raises ``RuntimeError`` on every device (its output would carry
@@ -114,7 +119,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "flash_attention has no backward: call it under torch.no_grad() "
             "or on operands that do not require grad")
     if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
     B, H, Hkv, Tq, Tk, D = _check(q, k, v)
     if D not in HEAD_DIMS:
         raise ValueError(f"head size {D} is not one the kernel is built for "
@@ -138,7 +143,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), B, H, Hkv, Tq, Tk, D, int(causal),
-            _scale(D), _cb.launch_stream(dev))
+            _scale(D) if scale is None else float(scale),
+            _cb.launch_stream(dev))
     _cb.raise_on_error(err, "flash_attention")
     flash_attention.launches += 1
     return out

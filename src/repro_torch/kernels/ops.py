@@ -159,12 +159,12 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale,
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              causal: bool) -> torch.Tensor:
-    return _fa.flash_attention(q, k, v, causal=causal)
+              causal: bool, scale: float | None = None) -> torch.Tensor:
+    return _fa.flash_attention(q, k, v, causal=causal, scale=scale)
 
 
 @_flash_op.register_fake
-def _(q, k, v, causal):
+def _(q, k, v, causal, scale=None):
     return torch.empty_like(q)
 
 
@@ -182,10 +182,12 @@ def _(q_shape, k_shape, v_shape, causal, *args, out_shape=None, **kwargs):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """Tiled GQA attention with an online softmax
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Tiled GQA attention with an online softmax, the scores scaled by
+    ``scale`` (None: ``1/sqrt(D)``)
     (:mod:`repro_torch.kernels.flash_attention`)."""
-    return _flash_op(q, k, v, causal)
+    return _flash_op(q, k, v, causal, scale)
 
 
 @torch.library.custom_op("repro_torch::minmax_rows", mutates_args=())

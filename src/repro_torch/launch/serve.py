@@ -9,6 +9,14 @@ int8 or SSM state) written into its slot's row; one ``decode_step`` then
 advances every active slot one token, each at its own position; finished
 sequences free their slot.  A failed
 prefill fails that one request; a failed decode fails the active batch.
+A request may carry its continuation (``forced``: a recorded turn to
+replay, an answer to score): the engine feeds the given token at each
+decode step in place of its own argmax, and keeps the logits of the steps
+the request names (``keep``) in ``kept``; the decoding, the caches and
+the scheduler are those of generation.  While tracing is on, each engine
+step is an ``lm.step`` span, each admitted request's prefill an
+``lm.prefill`` and each ``decode_step`` an ``lm.decode``, with the tokens
+they ran counted (``tokens.prefill``, ``tokens.decode``).
 
 The Neural Cache path (:class:`NCServingEngine`) admits queued image
 requests into batches and runs each batch as ONE
@@ -22,6 +30,7 @@ Usage:
     python -m repro_torch.launch.serve --arch qwen2-7b --requests 4
     python -m repro_torch.launch.serve --arch moonshot-v1-16b-a3b --max-len 2112
     python -m repro_torch.launch.serve --arch hymba-1.5b --max-len 2112
+    python -m repro_torch.launch.serve --arch granite-4.0-h-small-ep8 --max-len 2112
     python -m repro_torch.launch.serve --arch qwen2-7b --reduced --device cpu
     python -m repro_torch.launch.serve --neural-cache --requests 8
     python -m repro_torch.launch.serve --neural-cache --full --requests 4 --max-batch 2
@@ -39,7 +48,8 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
-from repro_torch.configs import REGISTRY, get_config, reduced_config
+from repro_torch.configs import (PORT_REGISTRY, REGISTRY, get_config,
+                                 reduced_config)
 from repro_torch.core import backends as nc_backends
 from repro_torch.core import schedule as nc_schedule
 from repro_torch.core import slo as nc_slo
@@ -81,6 +91,11 @@ class BatchQueueEngine:
 
 @dataclasses.dataclass
 class Request:
+    """An LM request.  ``out`` lists the tokens fed after the prompt, one a
+    step (step 0 is the prefill, step k the k-th decode step): the
+    model's argmax, or ``forced[k]`` while the request's continuation
+    lasts.  ``kept[k]`` is the logits ``[V]`` (on the device) of each step
+    ``k`` in ``keep``."""
     rid: int
     prompt: np.ndarray  # [T] int32
     max_tokens: int = 16
@@ -88,6 +103,20 @@ class Request:
     done: bool = False
     failed: bool = False
     error: str | None = None
+    forced: np.ndarray | None = None  # [n] int32 continuation to feed
+    keep: tuple = ()
+    kept: dict = dataclasses.field(default_factory=dict)
+
+    def next_token(self, logits) -> int | None:
+        """The token fed after the current step (whose logits ``[V]`` are
+        ``logits``): keeps the logits where asked, then returns the forced
+        token, or None where the model's argmax is to be fed."""
+        k = len(self.out)
+        if k in self.keep:
+            self.kept[k] = logits.clone()
+        if self.forced is not None and k < len(self.forced):
+            return int(self.forced[k])
+        return None
 
 
 @dataclasses.dataclass
@@ -126,23 +155,32 @@ class ServingEngine(BatchQueueEngine):
             # prefill this slot: per-request prefill into row i.  A prefill
             # failure fails only this request; the slot stays free for the
             # next queued one
-            toks = torch.as_tensor(np.asarray(req.prompt, np.int32),
-                                   device=self.device)[None]
-            try:
-                logits, caches1 = T.prefill(self.cfg, self.params, toks,
-                                            max_len=self.max_len)
-            except KernelError:
-                raise
-            except Exception as e:  # noqa: BLE001 — batch-failure contract
-                self._fail_requests([req], e)
-                continue
-            _write_slot(self.caches, caches1, i)
-            nxt = int(torch.argmax(logits[0]))
-            req.out.append(nxt)
-            self.tokens[i, 0] = nxt
-            slot.active, slot.req, slot.pos = True, req, len(req.prompt)
+            with tracing.span("lm.prefill", req.rid):
+                toks = tracing.fetch(torch.as_tensor,
+                                     np.asarray(req.prompt, np.int32),
+                                     device=self.device)[None]
+                tracing.count("tokens.prefill", toks.shape[1])
+                try:
+                    logits, caches1 = T.prefill(self.cfg, self.params, toks,
+                                                max_len=self.max_len)
+                except KernelError:
+                    raise
+                except Exception as e:  # noqa: BLE001 — batch-failure contract
+                    self._fail_requests([req], e)
+                    continue
+                _write_slot(self.caches, caches1, i)
+                nxt = req.next_token(logits[0])
+                if nxt is None:
+                    nxt = tracing.fetch(int, torch.argmax(logits[0]))
+                req.out.append(nxt)
+                self.tokens[i, 0] = nxt
+                slot.active, slot.req, slot.pos = True, req, len(req.prompt)
 
     def step(self) -> bool:
+        with tracing.span("lm.step", self.steps):
+            return self._step()
+
+    def _step(self) -> bool:
         self._admit()
         if not any(s.active for s in self.slots):
             return False
@@ -150,11 +188,15 @@ class ServingEngine(BatchQueueEngine):
         # decode, and write KV, each at its OWN position.  Inactive slots
         # pass 0; their rows are ignored and overwritten by the next
         # admission's prefill
-        pos = torch.tensor([s.pos if s.active else 0 for s in self.slots],
-                           dtype=torch.int32, device=self.device)
+        pos = tracing.fetch(torch.tensor, [s.pos if s.active else 0
+                                           for s in self.slots],
+                            dtype=torch.int32, device=self.device)
         try:
-            logits, self.caches = T.decode_step(self.cfg, self.params,
-                                                self.tokens, self.caches, pos)
+            with tracing.span("lm.decode"):
+                tracing.count("tokens.decode",
+                              sum(s.active for s in self.slots))
+                logits, self.caches = T.decode_step(
+                    self.cfg, self.params, self.tokens, self.caches, pos)
         except KernelError:
             raise
         except Exception as e:  # noqa: BLE001 — batch-failure contract
@@ -168,15 +210,20 @@ class ServingEngine(BatchQueueEngine):
                     s.active, s.req = False, None
             self.steps += 1
             return True
-        nxt = torch.argmax(logits, dim=-1).tolist()
+        given = [s.req.next_token(logits[i]) if s.active else None
+                 for i, s in enumerate(self.slots)]
+        argmax = None
+        if any(s.active and t is None for s, t in zip(self.slots, given)):
+            argmax = tracing.fetch(torch.argmax(logits, dim=-1).tolist)
         for i, slot in enumerate(self.slots):
             if not slot.active:
                 continue
-            tok = int(nxt[i])
+            tok = given[i] if given[i] is not None else int(argmax[i])
             slot.req.out.append(tok)
             self.tokens[i, 0] = tok
             slot.pos += 1
-            if (tok == self.eos or len(slot.req.out) >= slot.req.max_tokens
+            if ((given[i] is None and tok == self.eos)
+                    or len(slot.req.out) >= slot.req.max_tokens
                     or slot.pos >= self.max_len - 1):
                 slot.req.done = True
                 self.completed.append(slot.req)
@@ -603,7 +650,7 @@ def _main_lm(args) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=sorted(REGISTRY),
+    ap.add_argument("--arch", choices=sorted(REGISTRY) + sorted(PORT_REGISTRY),
                     help="serve this LM (any family: dense, audio, vision, "
                          "MoE, SSM, hybrid) with seeded random weights")
     ap.add_argument("--neural-cache", action="store_true",

@@ -90,11 +90,12 @@ def abstract_params(cfg: ModelConfig) -> dict:
     """The parameter tree of ``init_lm`` as ``meta`` tensors (shapes and
     dtypes, the reference's leaf order), built from the leaves' shapes
     rather than drawn."""
-    template = T._layer_init(cfg, None, _META)
     params = {
         "embed": torch.empty((cfg.vocab_size, cfg.d_model),
                              dtype=cfg.jdtype, device=_META),
-        "stages": [T._empty_stacked(template, st.length, _META)
+        "stages": [T._empty_stacked(T._layer_init(cfg, None, _META,
+                                                  kind=st.kind),
+                                    st.length, _META)
                    for st in T.plan_stages(cfg)],
         "final_norm": L.norm_init(cfg, _META),
     }

@@ -33,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.distributed.trace_analysis import note_loop
@@ -99,7 +100,7 @@ def norm_init(cfg: ModelConfig, device=None) -> dict:
 
 def apply_norm(cfg: ModelConfig, p: dict, x):
     if cfg.norm == "rmsnorm":
-        return rms_norm(x, p["w"])
+        return rms_norm(x, p["w"], cfg.norm_eps)
     if cfg.norm == "layernorm":
         return layer_norm(x, p["w"], p["b"])
     return layer_norm(x)
@@ -197,8 +198,9 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
     q = _split_heads(q, B, T, H, hd)
     k = _split_heads(k, B, T, Hkv, hd)
     v = _split_heads(v, B, T, Hkv, hd)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.position_embedding == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -208,10 +210,11 @@ def _einsum_f32(eq, a, b):
     return torch.einsum(eq, a.to(_F32), b.to(_F32))
 
 
-def _tile_attn(q, k, v, qpos, kpos, window: int):
+def _tile_attn(q, k, v, qpos, kpos, window: int, scale=None):
     """One (Q-tile, KV-strip) flash step.  q:[B,Hkv,G,qc,D] k/v:[B,Hkv,kc,D].
     Returns (scores-max m, exp-sum l, weighted acc)."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
     s = _einsum_f32("bhgqd,bhkd->bhgqk", q, k) * scale
     mask = kpos[None, :] <= qpos[:, None]
     if window > 0:
@@ -229,8 +232,9 @@ def _tile_attn(q, k, v, qpos, kpos, window: int):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset=0, kv_valid=None, q_chunk: int = 1024,
-                    kv_chunk: int = 1024):
-    """Tiled flash attention (GQA): q [B, H, Tq, D], k/v [B, Hkv, Tk, D].
+                    kv_chunk: int = 1024, scale: float | None = None):
+    """Tiled flash attention (GQA): q [B, H, Tq, D], k/v [B, Hkv, Tk, D];
+    the scores scaled by ``scale`` (None: ``1/sqrt(D)``).
 
     On a CUDA device the full prefill (``window == 0``) runs the
     flash-attention kernel, and ``q_offset`` or ``kv_valid`` raise
@@ -249,8 +253,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if is_dtensor(q):
         return _local_heads(functools.partial(
             flash_attention, causal=causal, window=window, q_offset=q_offset,
-            kv_valid=kv_valid, q_chunk=q_chunk, kv_chunk=kv_chunk),
-            q, k, v)
+            kv_valid=kv_valid, q_chunk=q_chunk, kv_chunk=kv_chunk,
+            scale=scale), q, k, v)
     dev = q.device
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (q, k, v))
@@ -260,9 +264,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 "on a GPU, flash_attention runs the prefill from position 0 "
                 "over every key (q_offset=0, kv_valid=None)")
         if window == 0:
+            # the scale only where the caller sets one: the kernel's own
+            # default is 1/sqrt(D)
+            kw = {} if scale is None else {"scale": scale}
             return ops.flash_attention(q.contiguous(), k.contiguous(),
-                                       v.contiguous(),
-                                       causal=causal).to(v.dtype)
+                                       v.contiguous(), causal=causal,
+                                       **kw).to(v.dtype)
     B, H, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -295,7 +302,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             ks, vs = k[:, :, start:start + strip], v[:, :, start:start + strip]
             kpos = start + arange(strip)
             kpos = torch.where(kpos < kv_valid, kpos, big)
-            m, l, acc = _tile_attn(qi, ks, vs, qpos, kpos, window)
+            m, l, acc = _tile_attn(qi, ks, vs, qpos, kpos, window, scale)
             tiles.append(acc / torch.clamp_min(l, 1e-30)[..., None])
     else:
         pad_k = (-Tk) % kv_chunk
@@ -320,7 +327,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                 vj = v[:, :, j * kv_chunk:(j + 1) * kv_chunk]
                 kpos = j * kv_chunk + arange(kv_chunk)
                 kpos = torch.where(kpos < kv_valid, kpos, big)
-                mj, lj, accj = _tile_attn(qi, kj, vj, qpos, kpos, 0)
+                mj, lj, accj = _tile_attn(qi, kj, vj, qpos, kpos, 0, scale)
                 m_new = torch.maximum(m, mj)
                 c1 = torch.exp(m - m_new)
                 c2 = torch.exp(mj - m_new)
@@ -473,15 +480,17 @@ def _attend(q, k_cache, v_cache, mask, scale):
     return out.reshape(B, H, 1, D)
 
 
-def decode_attention(q, k_cache, v_cache, pos, window: int = 0):
+def decode_attention(q, k_cache, v_cache, pos, window: int = 0,
+                     scale: float | None = None):
     """Single-token attention over a [B,Hkv,S,D] cache; pos = current
-    index (scalar, or int32 [B] per-row positions)."""
+    index (scalar, or int32 [B] per-row positions); the scores scaled by
+    ``scale`` (None: ``1/sqrt(D)``)."""
     if is_dtensor(q) and not _splits(k_cache, 2):
         return _local_heads(decode_attention, q, k_cache, v_cache, pos=pos,
-                            window=window)
+                            window=window, scale=scale)
     S, D = k_cache.shape[2], q.shape[-1]
     out = _attend(q, k_cache, v_cache, _decode_mask(pos, S, window),
-                  1.0 / math.sqrt(D))
+                  1.0 / math.sqrt(D) if scale is None else scale)
     return out.to(v_cache.dtype)
 
 
@@ -495,11 +504,16 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
     and at slot ``cache_pos`` otherwise.  Prefill writes the prompt's keys
     and values from slot 0; into a ring shorter than the prompt it writes
     the last W, rolled by ``T % W`` so that position p lies at slot p % W.
-    An int8 cache takes ``kv_quantize`` of them.
+    An int8 cache takes ``kv_quantize`` of them.  The scores are scaled by
+    ``cfg.attention_multiplier`` where the config sets one, else by
+    ``1/sqrt(hd)``.  While tracing is on, a full-attention prefill counts
+    its causal (query, key) pairs (``attn.prefill_pairs``) and a decode
+    step the keys its rows attend (``attn.decode_pairs``).
     """
     B, T, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
     kv8 = cfg.kv_dtype == "int8"
+    scale = cfg.attention_multiplier or None
     if cache is not None and T == 1:
         W = cache["k"].shape[2]
         if torch.as_tensor(cache_pos).ndim > 0:  # int32 [B] per-slot
@@ -525,7 +539,7 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
             if is_dtensor(q):
                 attend = functools.partial(_local_heads, decode_attention_q8)
             out = attend(q, cache["k"], cache["ks"], cache["v"],
-                         cache["vs"], pos=cache_pos, **ring)
+                         cache["vs"], pos=cache_pos, scale=scale, **ring)
         else:
             _cache_write(cache, {"k": k, "v": v}, slot)
             if window > 0:
@@ -535,14 +549,21 @@ def attention_apply(cfg, p, x, positions, *, window=0, cache=None,
                     attend = functools.partial(_local_heads, _attend)
                 out = attend(q, cache["k"], cache["v"],
                              mask=_ring_mask(slot, ring_len, W),
-                             scale=1.0 / math.sqrt(cfg.hd))
+                             scale=scale or 1.0 / math.sqrt(cfg.hd))
             else:
-                out = decode_attention(q, cache["k"], cache["v"], cache_pos)
+                out = decode_attention(q, cache["k"], cache["v"], cache_pos,
+                                       scale=scale)
+                if tracing.enabled():
+                    tracing.count("attn.decode_pairs", B * (cache_pos + 1)
+                                  if isinstance(cache_pos, int)
+                                  else (cache_pos + 1).sum())
         out = out.to(x.dtype)
     else:
         out = flash_attention(q, k, v, causal=True, window=window,
                               q_chunk=cfg.attn_chunk_q,
-                              kv_chunk=cfg.attn_chunk_kv)
+                              kv_chunk=cfg.attn_chunk_kv, scale=scale)
+        if window == 0:
+            tracing.count("attn.prefill_pairs", B * T * (T + 1) // 2)
         if cache is not None:  # prefill into cache
             W = cache["k"].shape[2]
             if window > 0 and W < T:
@@ -606,14 +627,16 @@ def _int8_einsum(eq: str, a, b):
 
 
 def decode_attention_q8(q, kq, ks, vq, vs, pos, window: int = 0,
-                        ring_slot=None, ring_len=None):
+                        ring_slot=None, ring_len=None,
+                        scale: float | None = None):
     """Single-token attention on an int8 cache, integer products throughout.
 
     QK^T runs int8 x int8 -> int32 (exact), scaled by the query's and the
     per-position key scales; the softmax probabilities absorb the
     per-position *value* scales and are requantized to int8 for the PV
     product.  ``ring_slot``/``ring_len`` mask a sliding-window ring by slot
-    age; otherwise ``pos`` (and ``window``) mask causally.  Returns float32
+    age; otherwise ``pos`` (and ``window``) mask causally.  The scores are
+    scaled by ``scale`` (None: divided by ``sqrt(D)``).  Returns float32
     [B,H,1,D].
     """
     B, H, _, D = q.shape
@@ -621,7 +644,8 @@ def decode_attention_q8(q, kq, ks, vq, vs, pos, window: int = 0,
     qq, qs = kv_quantize(q.reshape(B, Hkv, H // Hkv, 1, D))
     s_int = _int8_einsum("bhgqd,bhkd->bhgqk", qq, kq)
     # scales: qs [B,Hkv,G,1,1] x ks [B,Hkv,S,1] -> [B,Hkv,1,1,S]
-    s = (s_int * qs * ks[..., 0][:, :, None, None, :]) / math.sqrt(D)
+    s = s_int * qs * ks[..., 0][:, :, None, None, :]
+    s = s / math.sqrt(D) if scale is None else s * scale
     if ring_slot is not None:  # SWA ring buffer: mask by slot age
         mask = _ring_mask(ring_slot, ring_len, S)
     else:

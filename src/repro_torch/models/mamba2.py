@@ -184,7 +184,7 @@ def mamba_apply(cfg: ModelConfig, p: dict, u, cache=None):
     A = -torch.exp(p["A_log"])
     y, h_last = ssd_chunked(x, dt, A, Bm, Cm, p["D"], cfg.ssm_chunk)
     y = y.reshape(Bsz, T, di).to(u.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     out = y @ p["out_proj"]
     new_cache = None
     if cache is not None:
@@ -220,7 +220,7 @@ def mamba_step(cfg: ModelConfig, p: dict, u, cache):
     h = cache["ssm"] * decay[..., None, None] + upd
     y = torch.einsum("bhpn,bn->bhp", h, Cm) + p["D"][None, :, None] * x
     y = y.reshape(Bsz, di).to(u.dtype)
-    y = rms_norm(y * F.silu(z), p["norm_w"])
+    y = rms_norm(y * F.silu(z), p["norm_w"], cfg.norm_eps)
     out = (y @ p["out_proj"])[:, None]
     new_conv = torch.cat([cache["conv"][:, 1:],
                           xBC[:, None].to(cfg.jdtype)], dim=1)

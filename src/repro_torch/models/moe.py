@@ -1,6 +1,7 @@
 """Mixture-of-Experts layer (the port of ``repro.models.moe``): GShard-style
 einsum dispatch (default) and a gather/scatter alternative, both
-capacity-based with top-k renormalization.
+capacity-based with top-k renormalization, and a dropless layer that holds
+a share of the experts (``moe_impl="dropless"``, the port's own).
 
 Tokens are grouped (``moe_group_size``), routed in float32 to their top-k
 experts, and placed first come, first served (in (token, choice) order
@@ -16,6 +17,15 @@ EP sharding: the expert axis of the stacked expert weights maps to the
 expert-major buffers out groups x batch axes, experts x ``model``, so the
 dispatch is an all-to-all-class exchange of tokens, as the reference
 anchors it.
+
+The dropless layer (:func:`moe_apply_dropless`) is one chip's part of an
+expert-parallel deployment: it holds experts ``[share * held, (share + 1)
+* held)`` of ``n_experts`` (``cfg.experts_held``, ``cfg.expert_share``;
+all of them where ``experts_held`` is 0), routes every token over all
+``n_experts`` at the config's top k, and returns the part of the layer's
+output that its own experts give, for every token routed to them: no
+capacity, so nothing is dropped.  The other chips' parts, and the
+exchange that would sum them, are not this layer's.
 """
 from __future__ import annotations
 
@@ -24,11 +34,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models.layers import dense_init
 
-__all__ = ["moe_init", "moe_apply", "moe_apply_einsum", "moe_apply_scatter"]
+__all__ = ["moe_init", "moe_apply", "moe_apply_einsum", "moe_apply_scatter",
+           "moe_apply_dropless"]
 
 _F32 = torch.float32
 
@@ -65,7 +77,8 @@ def _constrain_ep(cfg: ModelConfig, xe):
 def moe_init(cfg: ModelConfig, generator, device=None,
              out: dict | None = None) -> dict:
     """Router ``[d, E]`` (float32) and stacked SwiGLU experts ``wi``/``wg``
-    ``[E, d, ff]`` and ``wo`` ``[E, ff, d]`` (``cfg.dtype``), drawn from
+    ``[E', d, ff]`` and ``wo`` ``[E', ff, d]`` (``cfg.dtype``; ``E'`` the
+    experts held, ``cfg.experts_held`` or all ``E``), drawn from
     ``generator`` with the reference's distributions (normal / sqrt(fan
     in)).  Each expert is drawn in float32 on its own and cast into place,
     so a layer's experts never exist in float32 at once; ``out`` (views of
@@ -73,15 +86,16 @@ def moe_init(cfg: ModelConfig, generator, device=None,
     on ``device``."""
     dt = cfg.jdtype
     E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
+    held = cfg.experts_held or E
     if out is None:
         out = {"router": torch.empty((d, E), dtype=_F32, device=device),
-               "wi": torch.empty((E, d, ff), dtype=dt, device=device),
-               "wg": torch.empty((E, d, ff), dtype=dt, device=device),
-               "wo": torch.empty((E, ff, d), dtype=dt, device=device)}
+               "wi": torch.empty((held, d, ff), dtype=dt, device=device),
+               "wg": torch.empty((held, d, ff), dtype=dt, device=device),
+               "wo": torch.empty((held, ff, d), dtype=dt, device=device)}
     out["router"].copy_(dense_init(generator, d, E, _F32, device))
     for name, fan_in in (("wi", d), ("wg", d), ("wo", ff)):
         leaf = out[name]
-        for e in range(E):
+        for e in range(held):
             w = torch.randn(tuple(leaf.shape[1:]), generator=generator,
                             dtype=_F32, device=leaf.device)
             leaf[e] = (w / math.sqrt(fan_in)).to(dt)
@@ -279,7 +293,72 @@ def moe_apply_scatter(cfg: ModelConfig, p: dict, x):
     return ungroup(y)
 
 
+def _swiglu_rows(p: dict, e: int, xr):
+    """Held expert ``e``'s SwiGLU on the rows ``xr`` [n, d]."""
+    return (F.silu(xr @ p["wg"][e]) * (xr @ p["wi"][e])) @ p["wo"][e]
+
+
+def _dense_form(x) -> bool:
+    """Whether the dropless layer runs every held expert on every token of
+    ``x`` [B, T, d]: on a decode step (one token a sequence), so that the
+    step needs no host read; a prefill sorts its tokens by expert."""
+    return x.shape[1] == 1
+
+
+def moe_apply_dropless(cfg: ModelConfig, p: dict, x):
+    """The held experts' part of a dropless MoE.  x: [B, T, d] -> [B, T, d].
+
+    Every token is routed over all ``n_experts`` (float32 softmax, top k
+    renormalized, :func:`_topk`); each (token, held expert) pair adds the
+    expert's SwiGLU output times its gate, summed over the held experts in
+    float32.  On a decode step (:func:`_dense_form`) every held expert
+    runs on every token and the gates, zero where a token did not choose
+    the expert, weight the sum; on a prefill the pairs are sorted by expert
+    and each expert runs on its own rows, after one host read of the
+    per-expert counts.  While tracing is on, ``moe.assigned``
+    counts the pairs computed and ``moe.dropped`` those left out (none)."""
+    B, T, d = x.shape
+    N, K, held = B * T, cfg.top_k, cfg.experts_held or cfg.n_experts
+    xf = x.reshape(N, d)
+    with tracing.span("moe.route"):
+        w, idx = _topk(_router(cfg, p, xf), K)  # [N, K]
+        local = idx - cfg.expert_share * held  # held experts: 0 .. held-1
+        mine = (local >= 0) & (local < held)
+        # the pairs of other chips' experts go to bin ``held``
+        local = torch.where(mine, local, held)
+    with tracing.span("moe.experts"):
+        if _dense_form(x):
+            gate = torch.zeros((N, held + 1), dtype=_F32, device=x.device)
+            gate.scatter_add_(1, local, w)
+            xe = xf.expand(held, N, d)
+            a = F.silu(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wi"])
+            ye = torch.bmm(a, p["wo"])  # [held, N, d]
+            y = torch.einsum("ne,end->nd", gate[:, :held], ye.to(_F32))
+            if tracing.enabled():
+                tracing.count("moe.assigned", mine.sum())
+        else:
+            keys, order = torch.sort(local.reshape(-1), stable=True)
+            counts = tracing.fetch(
+                torch.bincount(keys, minlength=held + 1)[:held].tolist)
+            rows = order // K
+            gates = w.reshape(-1)[order]
+            y = torch.zeros((N, d), dtype=_F32, device=x.device)
+            start = 0
+            for e, c in enumerate(counts):
+                if c:
+                    r = rows[start:start + c]
+                    ye = _swiglu_rows(p, e, xf[r])
+                    y.index_add_(0, r, ye.to(_F32) * gates[start:start + c,
+                                                            None])
+                start += c
+            tracing.count("moe.assigned", start)
+        tracing.count("moe.dropped", 0)  # no capacity: every pair computed
+    return y.to(x.dtype).reshape(B, T, d)
+
+
 def moe_apply(cfg: ModelConfig, p: dict, x):
+    if cfg.moe_impl == "dropless":
+        return moe_apply_dropless(cfg, p, x)
     if cfg.moe_impl == "scatter":
         return moe_apply_scatter(cfg, p, x)
     return moe_apply_einsum(cfg, p, x)

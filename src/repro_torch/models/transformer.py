@@ -8,10 +8,16 @@ dense, audio and vision families run the dense backbone (the audio and
 vision frontends are stubs, ``models/frontends.py``: a ``vision_patch``
 prefill takes ``embeds``); the MoE family replaces the MLP with
 ``models/moe.py``'s layer (plus arctic's parallel dense MLP,
-``moe_dense_residual``); the SSM family's layers are Mamba-2 mixers
-(``models/mamba2.py``) and the hybrid family's run attention and the mixer
-in parallel, with sliding-window (ring-cache) attention outside the global
-layers.
+``moe_dense_residual``, or a shared expert, ``shared_ff``); the SSM
+family's layers are Mamba-2 mixers (``models/mamba2.py``) and the hybrid
+family's run attention and the mixer in parallel, with sliding-window
+(ring-cache) attention outside the global layers.  A config with
+``layer_types`` (:class:`~repro_torch.configs.base.MixedLayerConfig`)
+gives each layer one mixer instead: ``plan_stages`` cuts the stack into
+runs of one kind, each stage's parameters and caches hold that kind's
+leaves only (KV caches on attention stages, ``conv``/``ssm`` state on
+Mamba stages), and the layers scale their residual branches, the
+embedding and the logits by the config's multipliers.
 
 Entry points:
     init_lm(cfg, generator, device=...)          -> params
@@ -55,7 +61,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch import tree
+from repro_torch import tracing, tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (is_dtensor, local_rows,
@@ -76,9 +82,20 @@ class Stage:
     start: int
     length: int
     window: int  # 0 = full attention
+    kind: str = ""  # the layers' one mixer ("mamba" | "attention"); "" = the
+    #                 family's mixers
 
 
 def plan_stages(cfg: ModelConfig) -> list[Stage]:
+    if cfg.layer_types:  # runs of one mixer kind
+        stages: list[Stage] = []
+        for i, kind in enumerate(cfg.layer_types):
+            if stages and stages[-1].kind == kind:
+                last = stages[-1]
+                stages[-1] = Stage(last.start, last.length + 1, 0, kind)
+            else:
+                stages.append(Stage(i, 1, 0, kind))
+        return stages
     if not cfg.global_layers or cfg.attn_window == 0:
         return [Stage(0, cfg.n_layers, cfg.attn_window)]
     stages: list[Stage] = []
@@ -256,12 +273,21 @@ def _sp_enter(cfg, h):
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
+def _mixers(cfg: ModelConfig, kind: str = "") -> tuple[bool, bool]:
+    """Whether a layer of a stage of ``kind`` has (attention, a Mamba-2
+    mixer)."""
+    if not kind:
+        return cfg.has_attention, cfg.has_ssm
+    return kind == "attention", kind == "mamba"
+
+
 def _layer_init(cfg: ModelConfig, generator, device,
-                out: dict | None = None) -> dict:
-    """One layer's parameters or, given ``out`` (the layer's views of the
-    stacked leaves), the same draws written into it: the MoE experts drawn
-    in place, one expert at a time, every other (smaller) leaf drawn whole
-    and copied into its slot.  Returns the layer's tree."""
+                out: dict | None = None, kind: str = "") -> dict:
+    """One layer's parameters (of a stage of ``kind``) or, given ``out``
+    (the layer's views of the stacked leaves), the same draws written into
+    it: the MoE experts drawn in place, one expert at a time, every other
+    (smaller) leaf drawn whole and copied into its slot.  Returns the
+    layer's tree."""
     def put(name, leaf):
         if out is None:
             return leaf
@@ -271,12 +297,13 @@ def _layer_init(cfg: ModelConfig, generator, device,
             out[name].copy_(leaf)
         return out[name]
 
+    attn, ssm = _mixers(cfg, kind)
     p: dict[str, Any] = {"norm1": put("norm1", L.norm_init(cfg, device))}
-    if cfg.has_attention:
+    if attn:
         p["attn"] = put("attn", L.attention_init(cfg, generator, device))
-    if cfg.has_ssm:
+    if ssm:
         p["ssm"] = put("ssm", M.mamba_init(cfg, generator, device))
-    if cfg.family == "hybrid":
+    if cfg.family == "hybrid" and not kind:
         for name in ("beta_attn", "beta_ssm"):
             p[name] = put(name, torch.ones((), dtype=torch.float32,
                                            device=device))
@@ -288,6 +315,9 @@ def _layer_init(cfg: ModelConfig, generator, device,
             p["dense_mlp"] = put("dense_mlp", L.mlp_init(
                 cfg, generator, d_ff=cfg.dense_ff or 2 * cfg.d_model,
                 device=device))
+        if cfg.shared_ff:
+            p["shared"] = put("shared", L.mlp_init(
+                cfg, generator, d_ff=cfg.shared_ff, device=device))
     elif cfg.d_ff > 0:
         p["norm2"] = put("norm2", L.norm_init(cfg, device))
         p["mlp"] = put("mlp", L.mlp_init(cfg, generator, device=device))
@@ -324,12 +354,13 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, *,
     and ``dt_bias`` and the hybrid's ``beta_attn``/``beta_ssm`` (stacked to
     ``[L]``) are float32."""
     dev = resolve_device(device)
-    template = _layer_init(cfg, None, torch.device("meta"))
     stage_params = []
     for st in plan_stages(cfg):
+        template = _layer_init(cfg, None, torch.device("meta"), kind=st.kind)
         stacked = _empty_stacked(template, st.length, dev)
         for i in range(st.length):
-            _layer_init(cfg, generator, dev, out=_index(stacked, i))
+            _layer_init(cfg, generator, dev, out=_index(stacked, i),
+                        kind=st.kind)
         stage_params.append(stacked)
     params = {
         "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model,
@@ -376,15 +407,17 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
     ``device`` (default ``"cuda"``): ``{"attn": {"k", "v"}}`` (plus
     ``"ks"``, ``"vs"`` for the int8 cache) of ``seq_len`` slots, or of
     ``min(window, seq_len)`` ring slots in a sliding-window stage, and for
-    the SSM and hybrid families ``{"ssm": {"conv", "ssm"}}``."""
+    the SSM and hybrid families ``{"ssm": {"conv", "ssm"}}``; a stage of
+    one mixer kind holds that kind's cache alone."""
     dev = resolve_device(device)
     caches = []
     for st in plan_stages(cfg):
         c: dict[str, Any] = {}
-        if cfg.has_attention:
+        attn, ssm = _mixers(cfg, st.kind)
+        if attn:
             c["attn"] = L.attention_cache_init(cfg, batch, seq_len, st.window,
                                                dev)
-        if cfg.has_ssm:
+        if ssm:
             c["ssm"] = M.mamba_cache_init(cfg, batch, dev)
         caches.append({kind: {k: v.new_zeros((st.length,) + tuple(v.shape))
                               for k, v in one.items()}
@@ -415,26 +448,41 @@ def _mixer(cfg, p, h, cache):
     return s
 
 
+def _residual(cfg, x, y):
+    """``x + y``, the branch scaled by ``cfg.residual_multiplier``."""
+    if cfg.residual_multiplier != 1.0:
+        y = y * cfg.residual_multiplier
+    return x + y
+
+
 def _layer_apply(cfg, lp, x, positions, window, cache, cache_pos):
+    """One layer; its mixers are the ones its parameters hold (``attn``,
+    ``ssm`` or both)."""
     h = _sp_enter(cfg, L.apply_norm(cfg, lp["norm1"], x))
     cache = cache or {}
-    if cfg.has_attention:
-        a, _ = L.attention_apply(cfg, lp["attn"], h, positions, window=window,
-                                 cache=cache.get("attn"), cache_pos=cache_pos)
-    if cfg.has_ssm:
-        s = _mixer(cfg, lp["ssm"], h, cache.get("ssm"))
-    if cfg.family == "hybrid":
+    if "attn" in lp:
+        with tracing.span("mixer.attn"):
+            a, _ = L.attention_apply(cfg, lp["attn"], h, positions,
+                                     window=window, cache=cache.get("attn"),
+                                     cache_pos=cache_pos)
+    if "ssm" in lp:
+        with tracing.span("mixer.mamba"):
+            s = _mixer(cfg, lp["ssm"], h, cache.get("ssm"))
+    if "beta_attn" in lp:
         ba = lp["beta_attn"].to(x.dtype)
         bs = lp["beta_ssm"].to(x.dtype)
         x = x + (ba * a + bs * s) / (ba + bs)
     else:
-        x = x + (s if cfg.has_ssm else a)
+        x = _residual(cfg, x, s if "ssm" in lp else a)
     if cfg.is_moe:
         h2 = _sp_enter(cfg, L.apply_norm(cfg, lp["norm2"], x))
         y = MoE.moe_apply(cfg, lp["moe"], h2)
         if cfg.moe_dense_residual:
             y = y + L.mlp_apply(cfg, lp["dense_mlp"], h2)
-        x = x + y
+        if "shared" in lp:
+            with tracing.span("moe.shared"):
+                y = y + L.mlp_apply(cfg, lp["shared"], h2)
+        x = _residual(cfg, x, y)
     elif cfg.d_ff > 0:
         x = x + L.mlp_apply(cfg, lp["mlp"],
                             _sp_enter(cfg, L.apply_norm(cfg, lp["norm2"], x)))
@@ -513,13 +561,18 @@ def _embed(cfg, params, tokens=None, embeds=None):
 
 def _head(cfg, params, h):
     w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return h @ w
+    out = h @ w
+    if cfg.logits_scaling != 1.0:
+        out = out / cfg.logits_scaling
+    return out
 
 
 def lm_apply(cfg, params, tokens=None, *, embeds=None, positions=None,
              caches=None, cache_pos=None):
     """Backbone forward.  Returns (hidden [B,T,d], caches or None)."""
     x = _embed(cfg, params, tokens, embeds)
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)

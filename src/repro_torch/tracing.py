@@ -9,11 +9,15 @@ device's idle gaps on the same clock.  A span never synchronizes the
 device: it holds the host's time in it, and the device work it launched may
 finish later.
 
-Two counters go to the innermost open span: ``host_syncs``, the calls on
-the served path that make the host wait for the device (reads of device
-values into Python, operations whose output size depends on device data,
-copies of host data into device tensors), and ``host_wait_ns``, the time
-the host spent in them.  Every such call goes through :func:`fetch`.
+Counters go to the innermost open span.  Every span's counters hold
+``host_syncs``, the calls on the served path that make the host wait for
+the device (reads of device values into Python, operations whose output
+size depends on device data, copies of host data into device tensors),
+and ``host_wait_ns``, the time the host spent in them; every such call
+goes through :func:`fetch`.  :func:`count` adds to any other counter
+(tokens, expert assignments, attention pairs), by a Python number or by a
+device tensor, which is read only when the session's counters are: the
+count makes the host wait for nothing.
 
 Tracing is on while a ``torch.profiler`` session records in this process,
 and inside :func:`session`.  While it is on, each span also opens a
@@ -39,8 +43,8 @@ import time
 
 import torch
 
-__all__ = ["Session", "span", "fetch", "annotate", "enabled", "session",
-           "last_session"]
+__all__ = ["Session", "span", "fetch", "count", "annotate", "enabled",
+           "session", "last_session"]
 
 _profiling = torch._C._autograd._profiler_enabled
 
@@ -61,14 +65,27 @@ class Session:
         self.idents = []  # (ident, root ident)
         self.attrs = {}  # record index -> {key: value}
         self._counters = {}  # span name -> {counter: total}
+        self._pending = []  # (span name, counter, 0-d device tensor)
         self._stack = []  # open _Span objects
 
-    def _count(self, wait_ns: int) -> None:
+    def _slot(self) -> tuple[str, dict]:
+        """The innermost open span's name and counters."""
         name = self._stack[-1].name if self._stack else ""
-        c = self._counters.setdefault(name, {"host_syncs": 0,
-                                             "host_wait_ns": 0})
+        return name, self._counters.setdefault(name, {"host_syncs": 0,
+                                                      "host_wait_ns": 0})
+
+    def _count(self, wait_ns: int) -> None:
+        _, c = self._slot()
         c["host_syncs"] += 1
         c["host_wait_ns"] += wait_ns
+
+    def _add(self, counter: str, n) -> None:
+        name, c = self._slot()
+        c.setdefault(counter, 0)
+        if torch.is_tensor(n):
+            self._pending.append((name, counter, n))
+        else:
+            c[counter] += int(n)
 
     def totals(self) -> dict:
         """``{name: {"total_s", "self_s", "count"}}``."""
@@ -82,8 +99,18 @@ class Session:
         return out
 
     def counters(self) -> dict:
-        """``{span name: {"host_syncs", "host_wait_ns"}}``; ``""`` holds
-        what was counted outside every span."""
+        """``{span name: {"host_syncs", "host_wait_ns", ...}}`` (the other
+        counters where :func:`count` added to them); ``""`` holds what was
+        counted outside every span.  Counts made by device tensors are read
+        here, one read for each span's counter."""
+        if self._pending:
+            groups = {}
+            for name, counter, t in self._pending:
+                groups.setdefault((name, counter), []).append(
+                    t.reshape(()).to(torch.int64))
+            self._pending = []
+            for (name, counter), ts in groups.items():
+                self._counters[name][counter] += int(torch.stack(ts).sum())
         return {k: dict(v) for k, v in self._counters.items()}
 
     def segments(self):
@@ -197,6 +224,14 @@ def fetch(call, *args, **kwargs):
     out = call(*args, **kwargs)
     s._count(time.perf_counter_ns() - t0)
     return out
+
+
+def count(counter: str, n) -> None:
+    """Add ``n`` (a Python number, or a 0-d integer device tensor read
+    when the session's counters are) to ``counter`` of the innermost open
+    span, while tracing is on."""
+    if _forced or _profiling():
+        _current_session()._add(counter, n)
 
 
 def _current_session() -> Session:
