@@ -6,9 +6,10 @@ Phases (any failure exits non-zero; no phase catches its own failure;
 results go to lines before the last; each phase prints its wall):
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: compile the five kernels of ``src/repro_torch/csrc/``
+2. build: compile the six kernels of ``src/repro_torch/csrc/``
    (``bitserial_gemm.cu``, ``bitserial_gemm_a4.cu``, ``quant_gemm.cu``,
-   ``flash_attention.cu``, ``minmax_rows.cu``) with nvcc, one process per source, in parallel,
+   ``flash_attention.cu``, ``minmax_rows.cu``, ``requant_rows.cu``) with
+   nvcc, one process per source, in parallel,
    and print each one's registers and spills;
 3. each kernel against its plain torch version on the card: the 8-bit
    bit-serial kernel at random ragged shapes (n_bits 1..8, signed and
@@ -38,12 +39,18 @@ results go to lines before the last; each phase prints its wall):
    flash route runs; ``minmax_rows`` (the §IV-D min/max) against its
    plain version, the bit-serial walk, at the 94 convolutions' output
    shapes at batch 4 (``bits=32``, signed), byte-identical (the largest
-   difference printed), one launch count a call;
+   difference printed), one launch count a call; ``requant_rows`` (the
+   §IV-D requantization of a batch) against its plain version at the 94
+   convolutions' output shapes and Mixed_7c's four branches (into their
+   slices of the block's 2048 channels) at batch 4, bytes and live counts
+   identical, one launch a call;
 4. full-width Inception v3 (299 px, 1001 classes, seeded random weights)
    served by ``NCServingEngine(max_batch=2)``: 4 requests, finite logits,
    each byte-identical to a standalone ``nc_forward`` of its image, the
    ``gemm`` backend native with 0 delegations and the kernel launched,
-   ``minmax_rows`` 94 times a batch's forward (one a convolution);
+   ``minmax_rows`` 94 times a batch's forward (one a convolution) and
+   ``requant_rows`` 144 times (one a convolution and a concatenated
+   branch);
 5. the 4-bit path at full width: ``nc_conv2d`` with 4-bit QuantParams at
    three full-width conv layers' shapes (batch 2) and ``nc_fc`` at
    2048 -> 1001, through the ``gemm`` backend; the W4A4 kernel launched and
@@ -58,7 +65,7 @@ results go to lines before the last; each phase prints its wall):
    the fault ledger, the checksum and re-execution cycles, the CSR bytes
    and the wall time;
 7. one batch-2 full-width forward with the kernels and one with
-   kernel 1 and ``minmax_rows`` swapped for their plain versions: logits, every layer report and the reports'
+   kernel 1, ``minmax_rows`` and ``requant_rows`` swapped for their plain versions: logits, every layer report and the reports'
    ``NCForwardReport.summary()`` tables byte-identical (the table printed);
    the correlation with the float forward is printed for information;
    then the forward's
@@ -257,9 +264,11 @@ results go to lines before the last; each phase prints its wall):
     n_bits 4, float epilogue) on lines of their own, outside the kernels
     line's sums; ``minmax_rows`` at batch 64 on the three largest
     convolution outputs beside its bound (bytes), the walk and
-    ``torch.aminmax`` of the int32 low words; then each kernel's
+    ``torch.aminmax`` of the int32 low words; ``requant_rows`` at batch 64
+    on the same three outputs beside its bound (9 bytes an element) and
+    its plain version (CUDA events around eager calls); then each kernel's
     registers a thread and spill bytes from its build report;
-15. one JSON line listing the five kernels (launches summed over every
+15. one JSON line listing the six kernels (launches summed over every
     path that ran them: the Inception serving, stream-chunk and fleet runs,
     the 8-bit ``nc_dot``, the examples' quickstart and Neural Cache
     serving and phase 13's forwards and real fleet for
@@ -269,8 +278,9 @@ results go to lines before the last; each phase prints its wall):
     sharded prefills and the LM demo for ``flash_attention``, and the
     Inception serving, stream-chunk and fleet runs, the examples' Neural
     Cache serving and phase 13's forwards and real fleet for
-    ``minmax_rows``, each counted from zero just before its run and the
-    full-width ones held to 94 launches a forward, one a convolution;
+    ``minmax_rows`` and ``requant_rows``, each counted from zero just
+    before its run and the full-width ones held to 94 launches a forward,
+    one a convolution (144 for ``requant_rows``, with the 50 branches);
     ``max_abs_err`` is each kernel's largest measured difference from its
     plain version), then the card line, then
     ``{"ok": true, "device": {...}}`` as the last line.
@@ -314,7 +324,7 @@ CONV_LAYERS = [("Conv2d_2b_3x3", 147, 32, 3, 64, 1, "SAME"),
 FAULT_PROFILE = "seed=7,filter=0.05,act=0.01,compute=0.01,stuck=3"
 # the sources of src/repro_torch/csrc/ that cuda_build.build_all compiles
 KERNELS = ("bitserial_gemm", "bitserial_gemm_a4", "quant_gemm",
-           "flash_attention", "minmax_rows")
+           "flash_attention", "minmax_rows", "requant_rows")
 
 
 def log(msg: str) -> None:
@@ -366,6 +376,34 @@ def _minmax_take(path: str, dev, forwards: int | None = None) -> int:
                              f"{forwards} full-width forwards, want "
                              f"{FULL_CONVS} a forward")
     MINMAX_BY_PATH[path] = MINMAX_BY_PATH.get(path, 0) + n
+    return n
+
+
+FULL_BRANCHES = 50  # branch outputs inception.FULL concatenates
+# requant_rows launches of the main-path runs, by path, counted as the
+# min/max kernel's are
+REQUANT_BY_PATH: dict[str, int] = {}
+
+
+def _requant():
+    """The requantization kernel's wrapper, whose ``launches`` the
+    main-path phases set to 0 with the min/max kernel's."""
+    from repro_torch.kernels import requant_rows as rq
+    return rq.requant_rows
+
+
+def _requant_take(path: str, dev, forwards: int | None = None) -> int:
+    """The requantization kernel's launches since ``path``'s zero set,
+    added to ``REQUANT_BY_PATH``; with ``forwards`` held on the card to one
+    launch a convolution and a concatenated branch, ``FULL_CONVS +
+    FULL_BRANCHES`` a forward (CPU tensors take the plain version)."""
+    n = _requant().launches
+    want = FULL_CONVS + FULL_BRANCHES
+    if forwards is not None and dev.type == "cuda" and n != want * forwards:
+        raise AssertionError(f"{path}: {n} requant_rows launches for "
+                             f"{forwards} full-width forwards, want {want} "
+                             f"a forward")
+    REQUANT_BY_PATH[path] = REQUANT_BY_PATH.get(path, 0) + n
     return n
 
 
@@ -667,6 +705,7 @@ def phase_serve(inception, serve, backends, bsm, params, images, dev, cfg):
         engine.submit(serve.NCRequest(rid=i, image=img))
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     backends.dispatch_stats_clear()
     t0 = time.perf_counter()
     done = engine.run()
@@ -675,11 +714,13 @@ def phase_serve(inception, serve, backends, bsm, params, images, dev, cfg):
     launches = bsm.bitserial_matmul.launches
     batches = engine.stats()["batch_histogram"]
     mm_launches = _minmax_take("serve", dev, sum(batches.values()))
+    rq_launches = _requant_take("serve", dev, sum(batches.values()))
     gemm = backends.dispatch_stats()["gemm"]
     log(f"[serve] {len(done)} full-width requests in {wall:.2f} s "
         f"(batches {batches}); gemm dispatch {gemm}; kernel launches "
         f"{launches}; minmax_rows launches {mm_launches} ({FULL_CONVS} a "
-        f"forward)")
+        f"forward); requant_rows launches {rq_launches} "
+        f"({FULL_CONVS + FULL_BRANCHES} a forward)")
     if len(done) != len(images) or engine.failed:
         raise AssertionError(f"served {len(done)} of {len(images)}: "
                              f"{engine.errors}")
@@ -874,10 +915,14 @@ def phase_plain_forward(inception, ops, bsm, mm, params, x, dev, cfg):
                                   device=dev)
     torch.cuda.synchronize()
     t_kernel = time.perf_counter() - t0
-    saved = ops.bitserial_matmul_exact, ops.minmax_rows
+    from repro_torch.kernels import requant_rows as rq
+
+    saved = ops.bitserial_matmul_exact, ops.minmax_rows, ops.requant_rows
     ops.bitserial_matmul_exact = _exact_plain(bsm)
     ops.minmax_rows = mm.minmax_rows_plain
-    launches = bsm.bitserial_matmul.launches, mm.minmax_rows.launches
+    ops.requant_rows = rq.requant_rows_plain
+    launches = (bsm.bitserial_matmul.launches, mm.minmax_rows.launches,
+                rq.requant_rows.launches)
     try:
         t0 = time.perf_counter()
         lp, rp = inception.nc_forward(params, x, config=cfg, wpack=wpack,
@@ -885,8 +930,9 @@ def phase_plain_forward(inception, ops, bsm, mm, params, x, dev, cfg):
         torch.cuda.synchronize()
         t_plain = time.perf_counter() - t0
     finally:
-        ops.bitserial_matmul_exact, ops.minmax_rows = saved
-    if (bsm.bitserial_matmul.launches, mm.minmax_rows.launches) != launches:
+        ops.bitserial_matmul_exact, ops.minmax_rows, ops.requant_rows = saved
+    if (bsm.bitserial_matmul.launches, mm.minmax_rows.launches,
+            rq.requant_rows.launches) != launches:
         raise AssertionError("the plain forward launched a kernel")
     if not bits_equal(lk, lp):
         raise AssertionError("full-width logits: kernel != plain")
@@ -989,6 +1035,107 @@ def phase_times_minmax(inception, mm, dev):
     return rows
 
 
+REQUANT_B = 4  # the batch of the requantization kernel's hold
+
+
+def _requant_case(rq, x, Ctot, offset, g):
+    """The requantization kernel and its plain version on ``x`` ``[B, P,
+    C]`` into ``Ctot`` channels at ``offset``, with seeded per-image
+    parameters (multipliers 1e-9 to 3, zero points 0 to 255): outputs and
+    live counts byte-identical, one launch; returns the largest output
+    difference."""
+    B, P, C = x.shape
+    reals = torch.exp(torch.empty(B).uniform_(math.log(1e-9), math.log(3.0),
+                                              generator=g))
+    from repro_torch.core import quantize as q
+
+    mult, shift = q.fixed_point_multiplier_rows(reals)
+    zps = torch.randint(0, 256, (2, B), generator=g)
+    in_zp = zps[0] if x.dtype == torch.uint8 else 0
+    got = torch.zeros((B, P, Ctot), dtype=torch.uint8, device=x.device)
+    want = got.clone()
+    before = rq.requant_rows.launches
+    live = rq.requant_rows(x, got, in_zp, mult, shift, zps[1], offset, True)
+    want_live = rq.requant_rows_plain(x, want, in_zp, mult, shift, zps[1],
+                                      offset, True)
+    torch.cuda.synchronize()
+    worst = int((got.to(torch.int16) - want.to(torch.int16)).abs().max())
+    if rq.requant_rows.launches != before + 1:
+        raise AssertionError("requant_rows: not one launch a call")
+    if not (bits_equal(got, want) and bits_equal(live, want_live)):
+        raise AssertionError(f"requant_rows at [{B}, {P}, {C}] -> {Ctot} at "
+                             f"{offset}: kernel != plain, max diff {worst}")
+    return worst
+
+
+def _requant_operands(K: int, batch: int, g) -> torch.Tensor:
+    """int64 ``[batch, K]`` on the card: post-ReLU staging, non-negative
+    int32 values."""
+    return torch.randint(0, 1 << 31, (batch, K), generator=g,
+                         device=g.device, dtype=torch.int64)
+
+
+def phase_requant(inception, rq, dev) -> int:
+    """The requantization kernel against its plain version at the 94
+    convolutions' output shapes at batch ``REQUANT_B`` and at Mixed_7c's
+    four branches into the block's 2048 channels: bytes and live counts
+    identical, one launch a call.  Returns the largest difference."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    gh = torch.Generator().manual_seed(9)
+    specs = [s for s in inception.inception_v3_specs(inception.FULL)
+             if s.kind == "conv"]
+    worst = 0
+    for s in specs:
+        x = _requant_operands(s.E * s.E * s.M, REQUANT_B, g)
+        worst = max(worst, _requant_case(
+            rq, x.view(REQUANT_B, s.E * s.E, s.M), s.M, 0, gh))
+    offset = 0
+    for C in (320, 768, 768, 192):
+        y = torch.randint(0, 256, (REQUANT_B, 64, C), generator=g,
+                          device=dev, dtype=torch.uint8)
+        worst = max(worst, _requant_case(rq, y, 2048, offset, gh))
+        offset += C
+    log(f"[requant] kernel == plain at the {len(specs)} convolutions' "
+        f"output shapes and Mixed_7c's 4 branches at batch {REQUANT_B}, "
+        f"live counts equal, one launch a call, max diff {worst}")
+    return worst
+
+
+def phase_times_requant(inception, rq, dev):
+    """The requantization kernel's device time at batch 64 on the three
+    largest convolution outputs, beside its bound (9 bytes an element: the
+    int64 read once, the uint8 written once, at 3.35 TB/s) and the plain
+    version's time (CUDA events around eager calls: each call's parameter
+    copy is in it, and the host runs ahead of the card).  No library call
+    computes it: the kernels line's library time is the plain version's
+    torch chain."""
+    g = torch.Generator(device=dev).manual_seed(10)
+    from repro_torch.core import quantize as q
+
+    rows = []
+    outs = sorted(((s.name, s.E * s.E, s.M)
+                   for s in inception.inception_v3_specs(inception.FULL)
+                   if s.kind == "conv"), key=lambda r: -r[1] * r[2])[:3]
+    B = MINMAX_TIME_B
+    for name, P, C in outs:
+        x = _requant_operands(P * C, B, g).view(B, P, C)
+        out = torch.empty((B, P, C), dtype=torch.uint8, device=dev)
+        mult, shift = q.fixed_point_multiplier_rows(
+            torch.full((B,), 1e-7, dtype=torch.float32))
+        ms = cuda_ms(lambda: rq.requant_rows(x, out, 0, mult, shift, 3,
+                                             live=True), reps=20)
+        plain_ms = cuda_ms(lambda: rq.requant_rows_plain(
+            x, out, 0, mult, shift, 3, live=True), reps=2, warmup=1)
+        bound = _bound(9 * B * P * C, 0, 1.0)
+        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
+                         library_ms=plain_ms, **bound))
+        log(f"[time-requant] {name} [{B}, {P}, {C}] ({rq.requant_blocks(B, P * C)}"
+            f" blocks a row): kernel {ms:.4f} ms, "
+            f"{bound['bound_ms'] / ms:.1%} of the bound "
+            f"{bound['bound_ms']:.5f} ms (bytes), plain {plain_ms:.3f} ms")
+    return rows
+
+
 def phase_split(inception, params, x, wpack, dev, cfg):
     """Full-width forward split into five stages by the program's own spans
     (``repro_torch.tracing``): pack (``layer.pack``: the filters' copy to
@@ -1053,6 +1200,7 @@ def phase_stream_chunk(inception, bsm, params, x, served, t_forward, dev,
     bitserial_matmul launches of the run."""
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, report = inception.nc_forward(params, x, config=cfg,
@@ -1062,6 +1210,7 @@ def phase_stream_chunk(inception, bsm, params, x, served, t_forward, dev,
     launches = bsm.bitserial_matmul.launches
     n_chunks = x.shape[0]
     _minmax_take("stream-chunk", dev, n_chunks)  # a forward a chunk
+    _requant_take("stream-chunk", dev, n_chunks)  # a forward a chunk
     loads = {lr.filter_loads for lr in report.layers
              if lr.kind in ("conv", "fc")}
     log(f"[stream-chunk] batch {x.shape[0]} full width, stream_chunk=1: "
@@ -1114,6 +1263,7 @@ def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
         orch.submit(serve.NCRequest(rid=i, image=img))
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     done = orch.run()
@@ -1122,6 +1272,7 @@ def phase_fleet(serve, orchestrator, geometry, bsm, params, images, served,
     launches = bsm.bitserial_matmul.launches
     s = orch.stats()
     _minmax_take("fleet", dev, sum(s["batch_histogram"].values()))
+    _requant_take("fleet", dev, sum(s["batch_histogram"].values()))
     log(f"[fleet] {len(done)} full-width requests over "
         f"{[e.name for e in engines]} (batch caps "
         f"{[e.batch_cap for e in engines]}) in {wall:.2f} s; dispatched "
@@ -3853,12 +4004,14 @@ def phase_ex_serve_nc(serve_quantized, inception, backends, ops, bsm,
     images = serve_quantized.nc_images(cfg, EX_NC_REQUESTS)
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     backends.dispatch_stats_clear()
     res = serve_quantized.main_neural_cache(
         params, cfg, images, EX_SLO_MS, EX_FAULTS, compressed=True,
         warmup_replan=True, device=dev)
     launches = bsm.bitserial_matmul.launches
     _minmax_take("examples serve-nc", dev)  # reduced width
+    _requant_take("examples serve-nc", dev)  # reduced width
     gemm = backends.dispatch_stats()["gemm"]
     fs, s = res["faults"], res["stats"]
     if len(res["done"]) != EX_NC_REQUESTS or s["failed"]:
@@ -4144,11 +4297,13 @@ def phase_sched(sched_breakdown, ops, bsm, card, dev) -> int:
     Returns the bit-serial kernel's launches in the measuring forwards."""
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     kernel = {}
     cal_walls = sched_breakdown.calibration_walls(dev, logits=kernel)
     serial, overlapped = sched_breakdown.measure_overlap(dev, logits=kernel)
     launches = bsm.bitserial_matmul.launches
     _minmax_take("sched", dev)  # reduced widths
+    _requant_take("sched", dev)  # reduced widths
     cal = min(cal_walls["dense"])
     ws, wo, spread = sched_breakdown.overlap_gate(serial, overlapped)
     log(f"[sched] on {card}: calibration wall {cal:.4f} s (batch-4 "
@@ -4204,11 +4359,13 @@ def phase_replay(traffic_replay, serve, inception, ops, bsm, params,
         log(f"[replay] {r}")
     bsm.bitserial_matmul.launches = 0
     _minmax().launches = 0
+    _requant().launches = 0
     stats = {}
     line = traffic_replay._real_fleet_bitidentity(
         params, cfg, images, served, device=dev, stats=stats)
     launches = bsm.bitserial_matmul.launches
     _minmax_take("replay", dev, sum(stats["forwards"].values()))
+    _requant_take("replay", dev, sum(stats["forwards"].values()))
     x = torch.from_numpy(np.stack(images)).to(dev)
     saved = ops.bitserial_matmul_exact
     ops.bitserial_matmul_exact = exact = _exact_plain(bsm)
@@ -4312,6 +4469,7 @@ def main() -> int:
     from repro_torch.kernels import minmax_rows as mm
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import requant_rows as rq
     from repro_torch.launch import orchestrator, serve
     from repro_torch.models import frontends, inception, layers, moe
     from repro_torch.models import transformer
@@ -4346,6 +4504,7 @@ def main() -> int:
     worst_fa = max(worst_fa, *timed("kernel-fa-families",
                                     phase_flash_family_shapes, fa, dev))
     worst_mm = timed("kernel-minmax", phase_minmax, inception, mm, dev)
+    worst_rq = timed("kernel-requant", phase_requant, inception, rq, dev)
     cfg = inception.FULL
     params = _inception_params(inception, cfg, dev)
     rng = np.random.default_rng(0)
@@ -4450,6 +4609,10 @@ def main() -> int:
     log(f"[minmax] minmax_rows launches by main-path run: {MINMAX_BY_PATH} "
         f"(total {launches_mm})")
     rows_mm = timed("times-minmax", phase_times_minmax, inception, mm, dev)
+    launches_rq = sum(REQUANT_BY_PATH.values())
+    log(f"[requant] requant_rows launches by main-path run: "
+        f"{REQUANT_BY_PATH} (total {launches_rq})")
+    rows_rq = timed("times-requant", phase_times_requant, inception, rq, dev)
     phase_registers(cuda_build)
     kernels = [
         _kernel_entry("bitserial_matmul",
@@ -4469,6 +4632,8 @@ def main() -> int:
                       launches_fa, worst_fa, rows_fa),
         _kernel_entry("minmax_rows", "src/repro_torch/csrc/minmax_rows.cu",
                       None, launches_mm, worst_mm, rows_mm),
+        _kernel_entry("requant_rows", "src/repro_torch/csrc/requant_rows.cu",
+                      None, launches_rq, worst_rq, rows_rq),
     ]
     log(f"[wall] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,8 @@ __all__ = [
     "fake_quant",
     "quantize_per_channel",
     "fixed_point_multiplier",
+    "choose_qparams_rows",
+    "fixed_point_multiplier_rows",
     "requantize_fixedpoint",
     "requantize_reference",
 ]
@@ -162,6 +164,52 @@ def fixed_point_multiplier(real_multiplier, bits: int = 31) -> tuple[int, int]:
     # an exact power of two yields 2^bits - 1 as there
     m = torch.clamp(m, 0, (1 << bits) - 1)
     return min(int(m), (1 << bits) - 1), shift
+
+
+def choose_qparams_rows(x_min: torch.Tensor, x_max: torch.Tensor,
+                        bits: int = 8, signed: bool = False
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`choose_qparams` of each row: float32 ``[B]`` ranges to
+    ``(scale, zero_point)``, float32 and int64 ``[B]``, on the CPU.  The
+    same IEEE float32 operations element by element, so each row's values
+    are bit for bit those of the scalar call on ``(x_min[b], x_max[b])``."""
+    lo = x_min.to(torch.float32)
+    lo = torch.minimum(lo, torch.zeros_like(lo))
+    hi = x_max.to(torch.float32)
+    hi = torch.maximum(hi, torch.zeros_like(hi))
+    qmin = -(1 << (bits - 1)) if signed else 0
+    qmax = (1 << (bits - 1)) - 1 if signed else (1 << bits) - 1
+    scale = (hi - lo) / (qmax - qmin)
+    scale = torch.where(scale <= 0, torch.ones_like(scale), scale)
+    zp = torch.clamp(torch.round(qmin - lo / scale), qmin, qmax)
+    return scale, zp.to(torch.int64)
+
+
+# a mantissa within this (relative) of a power of two puts log2 within
+# about 2^-12 of an integer, where the float32 log formula of
+# fixed_point_multiplier may land either side (its error is below 1e-5)
+_NEAR_POW2 = 2.0 ** -11
+
+
+def fixed_point_multiplier_rows(real_multiplier: torch.Tensor,
+                                bits: int = 31
+                                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fixed_point_multiplier` of each element of a float32 ``[B]``
+    CPU tensor: ``(mantissa, shift)``, int64 ``[B]``, equal to the scalar
+    call on each element.  The exponent comes exactly from ``frexp``; where
+    ``log2`` lies within about 2^-12 of an integer, so that the scalar
+    call's float32 log may round across the ceiling, or the value is not a
+    positive finite number, the scalar call itself decides."""
+    x = real_multiplier.to(torch.float32)
+    frac, exp = torch.frexp(x)  # x = frac * 2^exp, frac in [0.5, 1)
+    shift = bits - exp.to(torch.int64)
+    m = torch.round(torch.ldexp(x.to(torch.float64), shift.to(torch.float64)))
+    m = torch.clamp(m, 0, (1 << bits) - 1).to(torch.int64)
+    near = ((frac < 0.5 * (1 + _NEAR_POW2)) | (frac > 1 - _NEAR_POW2 / 2)
+            | ~(x > 0) | ~torch.isfinite(x))
+    for i in torch.nonzero(near).flatten().tolist():
+        m[i], shift[i] = fixed_point_multiplier(float(x[i]), bits)
+    return m, shift
 
 
 def requantize_fixedpoint(acc: torch.Tensor, multiplier: int, shift: int,

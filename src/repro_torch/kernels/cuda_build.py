@@ -51,6 +51,9 @@ _SIGNATURES = {
                         _P],
     # x, mins, maxs, workspace, rows, K, chunks, bits, signed, stream
     "minmax_rows": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, x_is_u8, out, params, B, P, C, Ctot, offset, blocks, count_live,
+    # stream
+    "requant_rows": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIB_LOCK = threading.Lock()

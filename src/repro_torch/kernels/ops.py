@@ -5,8 +5,10 @@
 kernel on nibble-packed activations.  :func:`quant_matmul` is the W8A8 GEMM
 of the post-training-quantization flow (``quant/ptq.py``) and
 :func:`flash_attention` the tiled attention of the LM's full prefill
-(``models/layers.py``), and :func:`minmax_rows` the per-row min and max of
-the §IV-D dynamic-range tree (``core/nc_layers.py`` ``nc_minmax``).  Each
+(``models/layers.py``), :func:`minmax_rows` the per-row min and max of
+the §IV-D dynamic-range tree (``core/nc_layers.py`` ``nc_minmax``) and
+:func:`requant_rows` the §IV-D requantization of a whole batch
+(``models/inception.py``'s epilogues and concatenations).  Each
 launches its Hopper kernel for CUDA tensors and runs the kernel's plain
 version for CPU tensors.  So do the
 reference's scaled entry points :func:`bitserial_matmul` (signed planes,
@@ -22,7 +24,8 @@ The products' FLOPs are registered in ``torch.utils.flop_counter``'s
 registry, so a FLOP counter or a dispatch mode
 (``repro_torch.distributed.trace_analysis``) charges a kernel's launch as
 one op with the FLOPs of the product it computes; the min/max computes
-no product and counts none.
+no product and counts none.  :func:`requant_rows` writes into a tensor it
+is given, so it is a plain function, not a custom op.
 """
 from __future__ import annotations
 
@@ -33,10 +36,11 @@ from repro_torch.kernels import bitserial_matmul as _bsm
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import minmax_rows as _mm
 from repro_torch.kernels import quant_matmul as _qm
+from repro_torch.kernels import requant_rows as _rq
 
 __all__ = ["bitserial_matmul_exact", "bitserial_matmul",
            "bitserial_matmul_a4", "quant_matmul", "quant_matmul_xla",
-           "flash_attention", "minmax_rows", "pack_weights",
+           "flash_attention", "minmax_rows", "requant_rows", "pack_weights",
            "pack_activations"]
 
 
@@ -208,3 +212,13 @@ def minmax_rows(x: torch.Tensor, bits: int = 32,
     an int64 ``[rows, K]`` tensor, two's complement when ``signed``
     (:mod:`repro_torch.kernels.minmax_rows`)."""
     return _minmax_op(x, bits, signed)
+
+
+def requant_rows(x: torch.Tensor, out: torch.Tensor, in_zp, mult, shift,
+                 out_zp, offset: int = 0,
+                 live: bool = False) -> torch.Tensor | None:
+    """Requantize a batch ``[B, P, C]`` (int64 or uint8) into uint8
+    ``out[B, P, Ctot]`` at channel ``offset``, one ``(in_zp, mult, shift,
+    out_zp)`` a row, with each row's count of outputs other than its zero
+    point when ``live`` (:mod:`repro_torch.kernels.requant_rows`)."""
+    return _rq.requant_rows(x, out, in_zp, mult, shift, out_zp, offset, live)

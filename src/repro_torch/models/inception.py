@@ -33,6 +33,8 @@ from repro_torch.core import simulator as sim
 from repro_torch.core.cache_geometry import CacheGeometry, XEON_E5_35MB
 from repro_torch.core.mapper import LayerSpec
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.requant_rows import requant_rows_plain
 
 # ---------------------------------------------------------------------------
 # Structure: op = ("conv", R, S, M, stride, pad) | ("maxpool"|"avgpool", R, stride, pad)
@@ -604,10 +606,36 @@ def prune_wpack(wpack: dict, fraction: float = 0.5) -> dict:
 def _requant_image(acc_b: torch.Tensor, real_multiplier: float,
                    zero_point: int) -> torch.Tensor:
     """In-cache fixed-point requantization of one image's staging
-    (integer multiply + round-shift in int64, bit-exact with the shifter)."""
+    (integer multiply + round-shift in int64, bit-exact with the shifter):
+    the batched requantization's plain version at B = 1."""
     mult, shift = q.fixed_point_multiplier(real_multiplier)
-    rounded = (acc_b.to(torch.int64) * mult + (1 << (shift - 1))) >> shift
-    return torch.clamp(rounded + zero_point, 0, 255).to(torch.uint8)
+    out = torch.empty(acc_b.shape, dtype=torch.uint8, device=acc_b.device)
+    requant_rows_plain(acc_b.reshape(1, -1, 1), out.view(1, -1, 1), 0, mult,
+                       shift, zero_point)
+    return out
+
+
+def _requant_batch(x: torch.Tensor, out: torch.Tensor, in_zp,
+                   scale_in: torch.Tensor, scale_out: torch.Tensor, out_zp,
+                   offset: int = 0, live: bool = False):
+    """Requantize ``x`` ``[B, ..., C]`` into ``out`` ``[B, ..., Ctot]`` at
+    channel ``offset`` by each image's multiplier ``scale_in / scale_out``
+    (float64 ``[B]`` quotient rounded to float32, as the per-image path's
+    Python quotient): one launch for the batch on the card.  Returns the
+    live counts when ``live``."""
+    B, C = x.shape[0], x.shape[-1]
+    real = (scale_in / scale_out.to(torch.float64)).to(torch.float32)
+    mult, shift = q.fixed_point_multiplier_rows(real)
+    tracing.count("requant.launches", 1)
+    tracing.count("requant.rows", B)
+    return kops.requant_rows(x.reshape(B, -1, C),
+                             out.view(B, -1, out.shape[-1]), in_zp, mult,
+                             shift, out_zp, offset, live)
+
+
+def _qparams_rows(scale: torch.Tensor, zp: torch.Tensor) -> list:
+    return [q.QuantParams(scale=s, zero_point=z)
+            for s, z in zip(scale.tolist(), zp.tolist())]
 
 
 def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
@@ -631,19 +659,17 @@ def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
     mn, mx, c_mm = nc.nc_minmax(acc.reshape(B, -1), bits=32, signed=True)
     cycles += int(c_mm)
     with tracing.span("epilogue.requant"):
-        # the two scalars per image
-        mn, mx = tracing.fetch(mn.tolist), tracing.fetch(mx.tolist)
-        yq, out_qps = [], []
-        for b in range(B):
-            qp = q.choose_qparams(mn[b] * sxw[b], mx[b] * sxw[b])
-            yq.append(_requant_image(acc[b], sxw[b] / qp.scale,
-                                     int(qp.zero_point)))
-            out_qps.append(qp)
-        yq = torch.stack(yq)
+        # the two scalars per image, in one read; each image's qparams and
+        # multiplier on the host, as float32 from float64 products
+        mn, mx = tracing.fetch(torch.stack([mn, mx]).cpu).to(torch.float64)
+        sxw64 = torch.tensor(sxw, dtype=torch.float64)
+        scale, zp = q.choose_qparams_rows((mn * sxw64).to(torch.float32),
+                                          (mx * sxw64).to(torch.float32))
+        yq = torch.empty(acc.shape, dtype=torch.uint8, device=acc.device)
+        live = _requant_batch(acc, yq, 0, sxw64, scale, zp, live=True)
+        out_qps = _qparams_rows(scale, zp)
         cycles += B * plan.quant_passes * _REQUANT_PASS_CYCLES
-        live_out = max(
-            tracing.fetch(int, (yq[b] != int(out_qps[b].zero_point)).sum())
-            for b in range(B))
+        live_out = tracing.fetch(lambda: int(live.max()))
     # a quarantine re-plans mid-layer: price the plan the engine executed,
     # plus the exact per-pass price of each fault re-execution
     modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
@@ -682,25 +708,31 @@ def _nc_run_pool(name, actq, act_qps, op, spec, geom, const, records):
 
 def _nc_concat(outs, state):
     """Concatenate branch outputs along channels, requantizing every branch
-    to a per-image common scale in-cache (only the qparams reach the host)."""
-    B = outs[0][0].shape[0]
-    cat_qps = []
-    pieces = [[None] * B for _ in outs]
-    for b in range(B):
+    to a per-image common scale in-cache (only the qparams reach the host),
+    each branch in one launch into its slice of the block's output."""
+    first = outs[0][0]
+    B = first.shape[0]
+    scales, zps, los, his = [], [], [], []
+    for _, qps in outs:
+        s = torch.tensor([qp.scale for qp in qps], dtype=torch.float64)
+        z = torch.tensor([int(qp.zero_point) for qp in qps])
         # (qmin - zp) * scale as float32 products, like the reference
-        lo = min(q.f32((qp.qmin - int(qp.zero_point)) * qp.scale)
-                 for _, qps in outs for qp in (qps[b],))
-        hi = max(q.f32((qp.qmax - int(qp.zero_point)) * qp.scale)
-                 for _, qps in outs for qp in (qps[b],))
-        qp_c = q.choose_qparams(lo, hi)
-        for i, (yq, qps) in enumerate(outs):
-            qp_i = qps[b]
-            accq = yq[b].to(torch.int64) - int(qp_i.zero_point)
-            pieces[i][b] = _requant_image(accq, qp_i.scale / qp_c.scale,
-                                          int(qp_c.zero_point))
-        cat_qps.append(qp_c)
+        los.append((torch.tensor([qp.qmin for qp in qps]) - z).to(
+            torch.float64).mul(s).to(torch.float32))
+        his.append((torch.tensor([qp.qmax for qp in qps]) - z).to(
+            torch.float64).mul(s).to(torch.float32))
+        scales.append(s)
+        zps.append(z)
+    scale_c, zp_c = q.choose_qparams_rows(torch.stack(los).amin(0),
+                                          torch.stack(his).amax(0))
+    out = torch.empty(first.shape[:-1] + (sum(y.shape[-1] for y, _ in outs),),
+                      dtype=torch.uint8, device=first.device)
+    offset = 0
+    for (yq, _), s, z in zip(outs, scales, zps):
+        _requant_batch(yq, out, z, s, scale_c, zp_c, offset)
+        offset += yq.shape[-1]
     state["concat_requant_cycles"] += B * len(outs) * _REQUANT_PASS_CYCLES
-    return torch.cat([torch.stack(p) for p in pieces], dim=-1), cat_qps
+    return out, _qparams_rows(scale_c, zp_c)
 
 
 def _nc_apply_op(actq, act_qps, name, op, wpack, specs, plans, geom, const,

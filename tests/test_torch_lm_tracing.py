@@ -155,7 +155,8 @@ def test_nothing_is_recorded_outside_a_session(model):
 def test_the_nc_path_records_its_own_spans_and_counters_only():
     """A served tiny Inception batch: the spans are the Neural Cache
     path's, none of the LM's, and every counter dict holds just
-    ``host_syncs`` and ``host_wait_ns``."""
+    ``host_syncs``, ``host_wait_ns`` and the requantization's
+    ``requant.launches`` and ``requant.rows``."""
     from ncbench.builders import inception
     from ncbench.conftest import TINY
 
@@ -174,6 +175,9 @@ def test_the_nc_path_records_its_own_spans_and_counters_only():
         assert engine.step()
     assert not set(_counts(s)) & LM_SPANS
     assert "serve.step" in _counts(s)
-    assert all(set(c) == {"host_syncs", "host_wait_ns"}
+    nc_counters = {"host_syncs", "host_wait_ns", "requant.launches",
+                   "requant.rows"}
+    assert all({"host_syncs", "host_wait_ns"} <= set(c) <= nc_counters
                for c in s.counters().values())
+    assert _total(s, "requant.launches") > 0
     assert _total(s, "host_syncs") > 0

@@ -5,11 +5,13 @@ Off, a span and a counted read cost no clock read and record nothing.  On
 nest and cut the time exactly as the benchmark's ``SpanRecorder`` does, a
 served tiny Inception batch records every span of the forward, and the
 ``host_syncs`` counter equals the count stated in ``PERF.md``: per
-convolution ``B + 2`` reads in the requantization (the two scalar reads of
-the min/max tree's result and one live-output read per image), one copy in
-the bias add, one in the operands' packing, one zero-operand read, plus the
-pruned and compressed layers' terms.  Logits and reports are the same with
-tracing on and off.
+convolution 2 reads in the requantization (the min/max tree's results in
+one read and the largest live-output count), one copy in the bias add, one
+in the operands' packing, one zero-operand read, plus the pruned and
+compressed layers' terms.  The requantization counts one launch for the
+whole batch (``requant.rows`` over ``requant.launches`` is the batch), one
+a convolution and one a concatenated branch.  Logits and reports are the
+same with tracing on and off.
 """
 import copy
 import json
@@ -220,7 +222,7 @@ def expected_host_syncs(engine, B: int) -> int:
         n += 2  # the operands: zero points copied, zero-operand count read
         if wq.device != engine.device:
             n += 1  # the filters' copy to the device
-        n += B + 3 if spec.kind == "conv" else 1  # epilogue / logits scale
+        n += 3 if spec.kind == "conv" else 1  # epilogue / logits scale
         K = spec.R * spec.S * spec.C
         if bs._row_layout(K)[2] > 1:
             n += 1  # the filter grid's row test in the gemm's decode
@@ -254,10 +256,64 @@ def test_served_batch_records_every_span_and_counts_its_syncs(name):
     step = [i for i, r in enumerate(s.records) if r[0] == "serve.step"]
     assert s.attrs == {step[0]: {"requests": [r.rid for r in batch]}}
     counters = s.counters()
-    assert counters["epilogue.requant"]["host_syncs"] == convs * (2 + 2)
+    assert counters["epilogue.requant"]["host_syncs"] == convs * 2
     total = sum(c["host_syncs"] for c in counters.values())
     assert total == expected_host_syncs(engine, 2)
-    assert all(c["host_wait_ns"] > 0 for c in counters.values())
+    # the concatenations count their launches and make no sync
+    assert counters["concat"]["host_syncs"] == 0
+    assert all(c["host_wait_ns"] > 0 for c in counters.values()
+               if c["host_syncs"])
+
+
+def _branches(config) -> int:
+    """Branch outputs the forward concatenates: each mixed block's, and
+    those of the splits inside its branches."""
+    def splits(ops):
+        return sum(len(op[1:]) + sum(splits(sub) for sub in op[1:])
+                   for op in ops if op[0] == "split")
+    return sum(len(br) + sum(splits(b) for b in br)
+               for _, br in config.mixed)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_served_batch_requantizes_each_layer_in_one_launch(name):
+    engine, cell = _engine(name)
+    _serve(engine, cell)
+    with tracing.session():
+        _serve(engine, cell, first_rid=2)
+    c = tracing.last_session().counters()
+    convs = sum(1 for p in engine.schedule.layers if p.spec.kind == "conv")
+    branches = _branches(engine.config)
+    assert c["epilogue.requant"]["requant.launches"] == convs
+    assert c["concat"]["requant.launches"] == branches
+    for span in ("epilogue.requant", "concat"):
+        assert c[span]["requant.rows"] == 2 * c[span]["requant.launches"]
+    launches = sum(v.get("requant.launches", 0) for v in c.values())
+    assert launches == convs + branches
+
+
+@pytest.mark.parametrize("config,convs,branches", [
+    ("FULL", 94, 50), ("reduced", 41, 22)])
+def test_forward_requant_launches_one_a_conv_and_branch(config, convs,
+                                                        branches):
+    from repro_torch.models import inception
+
+    cfg = (inception.FULL if config == "FULL"
+           else inception.reduced_config())
+    specs = inception.inception_v3_specs(cfg)
+    assert sum(1 for s in specs if s.kind == "conv") == convs
+    assert _branches(cfg) == branches
+    if config == "reduced":  # a traced forward at the reduced 79 px config
+        params = inception.init_params(torch.Generator().manual_seed(0),
+                                       config=cfg, device="cpu")
+        x = torch.rand((3, cfg.img, cfg.img, 3),
+                       generator=torch.Generator().manual_seed(1))
+        with tracing.session():
+            inception.nc_forward(params, x, config=cfg, device="cpu")
+        c = tracing.last_session().counters()
+        launches = sum(v.get("requant.launches", 0) for v in c.values())
+        rows = sum(v.get("requant.rows", 0) for v in c.values())
+        assert launches == convs + branches and rows == 3 * launches
 
 
 @pytest.mark.parametrize("name", CELLS)
