@@ -15,10 +15,11 @@ a grid cap (``walk``) splits the rows into chunks.  Overlap plans execute
 serially (results are byte-identical by the reference's own contract) and
 report ``overlap`` as the reference does.
 
-Compressed plans keep the filters as a
-:class:`~repro_torch.core.bitserial.CompressedPlanes` store and feed its
-byte-identical reconstruction to the dot.  Integrity plans and active
-fault scopes (``core/faults.py``) take the checked path
+Compressed plans report the bytes of the
+:class:`~repro_torch.core.bitserial.CompressedPlanes` store, counted from
+the filter words (``CompressedPlanes.split_bytes``), and the dot reads
+those words, which the store would give back byte for byte.  Integrity
+plans and active fault scopes (``core/faults.py``) take the checked path
 (:func:`_checked_passes`): all passes are verified at once against their
 ABFT checksums, then walked in the reference's order so that fault draws,
 retries, quarantines and every counter equal the reference's serial loop;
@@ -128,13 +129,6 @@ def nc_relu_requant(acc: torch.Tensor, real_multiplier: float,
     m, s = q.fixed_point_multiplier(q.f32(real_multiplier))
     return q.requantize_fixedpoint(acc, m, s,
                                    zero_point=out_zp).to(torch.uint8)
-
-
-def _quantize_weights(w: torch.Tensor, qp: q.QuantParams) -> torch.Tensor:
-    """float32 divide + round-half-even + clip, as int64."""
-    vals = torch.round(w.to(torch.float32) / q.f32(qp.scale))
-    vals = vals.to(torch.int64) + int(qp.zero_point)
-    return torch.clamp(vals, qp.qmin, qp.qmax)
 
 
 def _as_qp_list(qp, B: int) -> list[q.QuantParams]:
@@ -558,8 +552,8 @@ def nc_conv2d(
     with tracing.span("layer.pack"):
         if w.device != dev:
             w = tracing.fetch(w.to, dev)
-        wq = (w.to(torch.int64) if not torch.is_floating_point(w)
-              else _quantize_weights(w, w_qp))
+        wq = (q.quantize(w, w_qp) if torch.is_floating_point(w)
+              else w).to(torch.int64)
         xq = _quantize_images(x4, x_qps)
         R, S, Cw, M = wq.shape
         if xq.shape[3] != Cw:
@@ -689,15 +683,12 @@ def nc_conv2d(
             # filters packed once per layer per batch
             ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
             if compressed_exec:
-                # the CSR-per-bit-plane store stays resident and the dot
-                # consumes its byte-identical reconstruction.  An overlap plan
-                # keeps one store per pass's filter columns: its bytes are the
-                # sum over the passes' stores, as the reference reports them
-                store = bs.CompressedPlanes.compress(ww_all)
-                csr_bytes = (bs.CompressedPlanes.split_bytes(ww_all, m_tiles)
-                             if overlap_exec
-                             else (store.payload_bytes, store.index_bytes))
-                ww_all = store.dense()
+                # the CSR-per-bit-plane store's bytes, counted from the words
+                # the dot reads (its reconstruction is those words): one
+                # store for a serial plan, one per pass's filter columns for
+                # an overlap plan, as the reference reports them
+                csr_bytes = bs.CompressedPlanes.split_bytes(
+                    ww_all, m_tiles if overlap_exec else [(0, M_live)])
         walk = engine == "walk"
         # the walk's own per-call counts are replaced by the per-tile ones
         with bs.counts_into(bs.SkipStats()) if walk else nullcontext():

@@ -1,6 +1,7 @@
 """Inception v3 — the paper's evaluation workload (Table I), in PyTorch.
 
-The port of ``repro.models.inception``.  One structure definition drives:
+The port of ``repro.models.inception``.  One structure definition, walked
+by one function (``_walk``: the order and the layer names), drives:
 
 * ``inception_v3_specs()`` — the per-branch LayerSpec list consumed by the
   mapper, scheduler and simulator (equal to the reference's),
@@ -34,7 +35,6 @@ from repro_torch.core.cache_geometry import CacheGeometry, XEON_E5_35MB
 from repro_torch.core.mapper import LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.requant_rows import requant_rows_plain
 
 # ---------------------------------------------------------------------------
 # Structure: op = ("conv", R, S, M, stride, pad) | ("maxpool"|"avgpool", R, stride, pad)
@@ -220,54 +220,71 @@ def _out_size(h: int, r: int, stride: int, pad: str) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Spec generation for the mapper/simulator
+# The walk of the op tree: one order and one naming rule for the specs, the
+# float forward, the sparsity estimates and the emulated forward.
 # ---------------------------------------------------------------------------
-def _op_specs(name, block, op, h, c, specs):
-    """Append LayerSpecs for one op; return (out_h, out_c)."""
-    if op[0] == "conv":
-        _, r, s, m, stride, pad = op
-        e = _out_size(h, max(r, s), stride, pad)
-        specs.append(
-            LayerSpec(name=name, kind="conv", H=h, R=r, S=s, C=c, M=m, E=e,
-                      stride=stride, block=block)
-        )
-        return e, m
-    if op[0] in ("maxpool", "avgpool"):
-        _, r, stride, pad = op
-        e = _out_size(h, r, stride, pad)
-        specs.append(
-            LayerSpec(name=name, kind=op[0], H=h, R=r, S=r, C=0, M=c, E=e,
-                      stride=stride, block=block)
-        )
-        return e, c
-    if op[0] == "split":
-        out_c = 0
-        e = h
-        for i, sub in enumerate(op[1:]):
-            hh, cc = h, c
-            for j, sop in enumerate(sub):
-                hh, cc = _op_specs(f"{name}_s{i}_{j}", block, sop, hh, cc, specs)
-            out_c += cc
-            e = hh
-        return e, out_c
-    raise ValueError(op)
+def _walk(config: InceptionConfig, x, leaf, join):
+    """Carry ``x`` through ``config``'s ops in definition order:
+    ``leaf(name, block, op, x)`` runs one conv or pool and returns its
+    output, ``join(name, outs)`` merges the branch outputs of a mixed block
+    or a ``split`` op.  A stem op is named as in the config; op 0 of a
+    mixed block's branch 1 is ``Mixed_5b_b1_0``, and op 0 of a split's
+    branch 1 is named after the split op, as ``Mixed_7b_b1_1_s1_0``.
+    Yields ``(stage, x)`` after each stem op and each mixed block."""
+    def branches(subs, x, block, name_of):
+        outs = []
+        for i, sub in enumerate(subs):
+            y = x
+            for j, op in enumerate(sub):
+                y = run(name_of(i, j), block, op, y)
+            outs.append(y)
+        return outs
+
+    def run(name, block, op, x):
+        if op[0] == "split":
+            return join(name, branches(op[1:], x, block,
+                                       lambda i, j: f"{name}_s{i}_{j}"))
+        if op[0] not in ("conv", "maxpool", "avgpool"):
+            raise ValueError(op)
+        return leaf(name, block, op, x)
+
+    for name, op in config.stem:
+        x = run(name, name, op, x)
+        yield name, x
+    for bname, subs in config.mixed:
+        x = join(bname, branches(subs, x, bname,
+                                 lambda bi, oi: f"{bname}_b{bi}_{oi}"))
+        yield bname, x
+
+
+def _walk_all(config: InceptionConfig, x, leaf, join):
+    """:func:`_walk` run to its end; returns the last ``x``."""
+    for _, x in _walk(config, x, leaf, join):
+        pass
+    return x
 
 
 def inception_v3_specs(config: InceptionConfig = FULL) -> list[LayerSpec]:
     specs: list[LayerSpec] = []
-    h, c = config.img, 3
-    for name, op in config.stem:
-        h, c = _op_specs(name, name, op, h, c, specs)
-    for bname, branches in config.mixed:
-        out_c = 0
-        out_h = h
-        for bi, branch in enumerate(branches):
-            hh, cc = h, c
-            for oi, op in enumerate(branch):
-                hh, cc = _op_specs(f"{bname}_b{bi}_{oi}", bname, op, hh, cc, specs)
-            out_c += cc
-            out_h = hh
-        h, c = out_h, out_c
+
+    def leaf(name, block, op, hc):
+        h, c = hc
+        if op[0] == "conv":
+            _, r, s, m, stride, pad = op
+            e = _out_size(h, max(r, s), stride, pad)
+            specs.append(LayerSpec(name=name, kind="conv", H=h, R=r, S=s, C=c,
+                                   M=m, E=e, stride=stride, block=block))
+            return e, m
+        _, r, stride, pad = op
+        e = _out_size(h, r, stride, pad)
+        specs.append(LayerSpec(name=name, kind=op[0], H=h, R=r, S=r, C=0,
+                               M=c, E=e, stride=stride, block=block))
+        return e, c
+
+    def join(name, outs):  # the last branch's size, the channels summed
+        return outs[-1][0], sum(c for _, c in outs)
+
+    h, c = _walk_all(config, (config.img, 3), leaf, join)
     # global average pool (8x8 window) + FC-as-1x1-conv (§IV-D)
     specs.append(LayerSpec("AvgPool", "avgpool", H=h, R=h, S=h, C=0, M=c, E=1,
                            stride=1, block="AvgPool"))
@@ -350,29 +367,6 @@ def _pool(x, kind, r, stride, pad):
     return (s / n).permute(0, 2, 3, 1)
 
 
-def _apply_op(x, name, op, params, quant: bool):
-    if op[0] == "conv":
-        _, r, s, m, stride, pad = op
-        p = params[name]
-        if quant:
-            x = q.fake_quant(x)  # dynamic uint8 activations (§IV-D)
-            wq, wscale = q.quantize_per_channel(p["w"], axis=-1)
-            p = dict(p, w=wq.to(torch.float32) * wscale)
-        return torch.relu(_conv(x, p, stride, pad))
-    if op[0] in ("maxpool", "avgpool"):
-        _, r, stride, pad = op
-        return _pool(x, op[0], r, stride, pad)
-    if op[0] == "split":
-        outs = []
-        for i, sub in enumerate(op[1:]):
-            y = x
-            for j, sop in enumerate(sub):
-                y = _apply_op(y, f"{name}_s{i}_{j}", sop, params, quant)
-            outs.append(y)
-        return torch.cat(outs, dim=-1)
-    raise ValueError(op)
-
-
 def apply(params: dict, x: torch.Tensor, quant: bool = False,
           config: InceptionConfig = FULL) -> torch.Tensor:
     """Float forward pass.  ``x``: ``[N, H, W, 3]`` float32 in [0, 1] on the
@@ -388,16 +382,20 @@ def apply(params: dict, x: torch.Tensor, quant: bool = False,
     float reference runs in full float32, not TF32, on the GPU."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name, op in config.stem:
-        x = _apply_op(x, name, op, params, quant)
-    for bname, branches in config.mixed:
-        outs = []
-        for bi, branch in enumerate(branches):
-            y = x
-            for oi, op in enumerate(branch):
-                y = _apply_op(y, f"{bname}_b{bi}_{oi}", op, params, quant)
-            outs.append(y)
-        x = torch.cat(outs, dim=-1)
+
+    def leaf(name, block, op, x):
+        if op[0] != "conv":
+            _, r, stride, pad = op
+            return _pool(x, op[0], r, stride, pad)
+        _, r, s, m, stride, pad = op
+        p = params[name]
+        if quant:
+            x = q.fake_quant(x)  # dynamic uint8 activations (§IV-D)
+            wq, wscale = q.quantize_per_channel(p["w"], axis=-1)
+            p = dict(p, w=wq.to(torch.float32) * wscale)
+        return torch.relu(_conv(x, p, stride, pad))
+
+    x = _walk_all(config, x, leaf, lambda name, outs: torch.cat(outs, dim=-1))
     x = x.mean(dim=(1, 2))  # global average pool
     if quant:
         x = q.fake_quant(x)
@@ -502,7 +500,7 @@ def prepare_conv_weights(params: dict, config: InceptionConfig) -> dict:
         p = params[name]
         wf = p["w"].to(torch.float32) * p["scale"].to(torch.float32)
         w_qp = q.choose_qparams(float(wf.min()), float(wf.max()))
-        wq = nc._quantize_weights(wf, w_qp).to(torch.uint8)
+        wq = q.quantize(wf, w_qp)
         packed[name] = (wq, w_qp, p["bias"].to(torch.float32))
     return packed
 
@@ -510,39 +508,19 @@ def prepare_conv_weights(params: dict, config: InceptionConfig) -> dict:
 RELU_ZERO_FRACTION = 0.5  # prior for post-ReLU zeros (symmetric preactivation)
 
 
-def _op_act_est(name, op, p_in, est):
-    """Record a conv's INPUT sparsity estimate, return the output's."""
-    if op[0] == "conv":
-        est[name] = p_in
-        return RELU_ZERO_FRACTION
-    if op[0] in ("maxpool", "avgpool"):
-        _, r, stride, pad = op
-        return float(p_in) ** (r * r)
-    if op[0] == "split":
-        outs = []
-        for i, sub in enumerate(op[1:]):
-            p = p_in
-            for j, sop in enumerate(sub):
-                p = _op_act_est(f"{name}_s{i}_{j}", sop, p, est)
-            outs.append(p)
-        return sum(outs) / len(outs)
-    raise ValueError(op)
-
-
 def activation_sparsity_estimates(config: InceptionConfig = REDUCED) -> dict:
     """ReLU-chain estimates of each conv/fc layer's zero INPUT fraction."""
     est: dict[str, float] = {}
-    p = 0.0  # raw image pixels
-    for name, op in config.stem:
-        p = _op_act_est(name, op, p, est)
-    for bname, branches in config.mixed:
-        outs = []
-        for bi, branch in enumerate(branches):
-            pb = p
-            for oi, op in enumerate(branch):
-                pb = _op_act_est(f"{bname}_b{bi}_{oi}", op, pb, est)
-            outs.append(pb)
-        p = sum(outs) / len(outs)
+
+    def leaf(name, block, op, p_in):  # a conv's input estimate, its output's
+        if op[0] == "conv":
+            est[name] = p_in
+            return RELU_ZERO_FRACTION
+        r = op[1]
+        return float(p_in) ** (r * r)
+
+    _walk_all(config, 0.0,  # raw image pixels
+              leaf, lambda name, outs: sum(outs) / len(outs))
     est["FullyConnected"] = 0.0  # global avg of non-negative values
     return est
 
@@ -603,18 +581,6 @@ def prune_wpack(wpack: dict, fraction: float = 0.5) -> dict:
     return pruned
 
 
-def _requant_image(acc_b: torch.Tensor, real_multiplier: float,
-                   zero_point: int) -> torch.Tensor:
-    """In-cache fixed-point requantization of one image's staging
-    (integer multiply + round-shift in int64, bit-exact with the shifter):
-    the batched requantization's plain version at B = 1."""
-    mult, shift = q.fixed_point_multiplier(real_multiplier)
-    out = torch.empty(acc_b.shape, dtype=torch.uint8, device=acc_b.device)
-    requant_rows_plain(acc_b.reshape(1, -1, 1), out.view(1, -1, 1), 0, mult,
-                       shift, zero_point)
-    return out
-
-
 def _requant_batch(x: torch.Tensor, out: torch.Tensor, in_zp,
                    scale_in: torch.Tensor, scale_out: torch.Tensor, out_zp,
                    offset: int = 0, live: bool = False):
@@ -636,6 +602,33 @@ def _requant_batch(x: torch.Tensor, out: torch.Tensor, in_zp,
 def _qparams_rows(scale: torch.Tensor, zp: torch.Tensor) -> list:
     return [q.QuantParams(scale=s, zero_point=z)
             for s, z in zip(scale.tolist(), zp.tolist())]
+
+
+def _layer_report(name, kind, out_shape, cycles, geom, const, spec=None,
+                  stats=None, **counts) -> NCLayerReport:
+    """One layer's report: the engine's ``cycles`` beside the modeled pass
+    cycles.  A conv or the FC is priced on the plan the engine executed
+    (``stats.plan``: a quarantine re-plans mid-layer) plus the exact
+    per-pass price of each fault re-execution, and carries ``stats``'
+    counters; a pool is priced on its ``spec`` (pools never skip)."""
+    modeled = sim.modeled_layer_cycles(
+        spec if stats is None else stats.plan, geom, const)
+    modeled_cycles = modeled["total_cycles"]
+    if stats is not None:
+        modeled_cycles += stats.reexec_passes * modeled["reexec_pass_cycles"]
+        counts.update(
+            lanes=stats.lanes, zero_operand_lanes=stats.zero_operand_lanes,
+            filter_loads=stats.filter_loads,
+            skipped_passes=modeled["skipped_passes"],
+            zero_filters=stats.zero_filters, overlap=stats.overlap,
+            integrity=stats.integrity, reexec_passes=stats.reexec_passes,
+            faults_detected=stats.faults_detected,
+            quarantined_slices=stats.quarantined_slices)
+    return NCLayerReport(
+        name=name, kind=kind, out_shape=tuple(out_shape),
+        emulated_cycles=int(cycles), modeled_cycles=modeled_cycles,
+        serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
+        batch=out_shape[0], **counts)
 
 
 def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
@@ -670,23 +663,9 @@ def _nc_run_conv(name, actq, act_qps, op, wpack, spec, plan, geom, const,
         out_qps = _qparams_rows(scale, zp)
         cycles += B * plan.quant_passes * _REQUANT_PASS_CYCLES
         live_out = tracing.fetch(lambda: int(live.max()))
-    # a quarantine re-plans mid-layer: price the plan the engine executed,
-    # plus the exact per-pass price of each fault re-execution
-    modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
-    records.append(NCLayerReport(
-        name=name, kind="conv", out_shape=tuple(yq.shape),
-        emulated_cycles=int(cycles),
-        modeled_cycles=(modeled["total_cycles"]
-                        + stats.reexec_passes * modeled["reexec_pass_cycles"]),
-        serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
-        lanes=stats.lanes, zero_operand_lanes=stats.zero_operand_lanes,
-        batch=B, minmax_cycles=int(c_mm), filter_loads=stats.filter_loads,
-        skipped_passes=modeled["skipped_passes"],
-        zero_filters=stats.zero_filters, overlap=stats.overlap,
-        integrity=stats.integrity, reexec_passes=stats.reexec_passes,
-        faults_detected=stats.faults_detected,
-        quarantined_slices=stats.quarantined_slices,
-        live_output_bytes=live_out))
+    records.append(_layer_report(
+        name, "conv", yq.shape, cycles, geom, const, stats=stats,
+        minmax_cycles=int(c_mm), live_output_bytes=live_out))
     return yq, out_qps
 
 
@@ -696,12 +675,8 @@ def _nc_run_pool(name, actq, act_qps, op, spec, geom, const, records):
         out_q, cycles = nc.nc_maxpool2d(actq, r, stride, padding=pad)
     else:
         out_q, cycles = nc.nc_avgpool2d(actq, r, stride, padding=pad)
-    modeled = sim.modeled_layer_cycles(spec, geom, const)  # pools never skip
-    records.append(NCLayerReport(
-        name=name, kind=kind, out_shape=tuple(out_q.shape),
-        emulated_cycles=int(cycles), modeled_cycles=modeled["total_cycles"],
-        serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
-        batch=out_q.shape[0]))
+    records.append(_layer_report(name, kind, out_q.shape, cycles, geom, const,
+                                 spec=spec))
     # pooling is order/affine-transparent: quantization passes through
     return out_q, act_qps
 
@@ -735,30 +710,6 @@ def _nc_concat(outs, state):
     return out, _qparams_rows(scale_c, zp_c)
 
 
-def _nc_apply_op(actq, act_qps, name, op, wpack, specs, plans, geom, const,
-                 engine, records, state):
-    if op[0] == "conv":
-        with tracing.span("conv", name):
-            return _nc_run_conv(name, actq, act_qps, op, wpack, specs[name],
-                                plans[name], geom, const, engine, records)
-    if op[0] in ("maxpool", "avgpool"):
-        with tracing.span("pool", name):
-            return _nc_run_pool(name, actq, act_qps, op, specs[name], geom,
-                                const, records)
-    if op[0] == "split":
-        outs = []
-        for i, sub in enumerate(op[1:]):
-            yq, qps = actq, act_qps
-            for j, sop in enumerate(sub):
-                yq, qps = _nc_apply_op(yq, qps, f"{name}_s{i}_{j}", sop,
-                                       wpack, specs, plans, geom, const,
-                                       engine, records, state)
-            outs.append((yq, qps))
-        with tracing.span("concat", name):
-            return _nc_concat(outs, state)
-    raise ValueError(op)
-
-
 def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
                   records, state):
     """Generator over the network's serial stages: one yield per stem op,
@@ -768,23 +719,22 @@ def _nc_stage_gen(x4, config, wpack, specs, plans, geom, const, engine,
     # §IV-D input quantization: uint8 pixels over a static [0, 1] range
     actq = torch.clamp(torch.round(x4 * 255.0), 0, 255).to(torch.uint8)
     act_qps = [q.QuantParams(scale=q.f32(1.0 / 255.0), zero_point=0)] * B
-    for name, op in config.stem:
-        actq, act_qps = _nc_apply_op(actq, act_qps, name, op, wpack, specs,
-                                     plans, geom, const, engine, records,
-                                     state)
-        yield name
-    for bname, branches in config.mixed:
-        outs = []
-        for bi, branch in enumerate(branches):
-            yq, qps = actq, act_qps
-            for oi, op in enumerate(branch):
-                yq, qps = _nc_apply_op(yq, qps, f"{bname}_b{bi}_{oi}", op,
-                                       wpack, specs, plans, geom, const,
-                                       engine, records, state)
-            outs.append((yq, qps))
-        with tracing.span("concat", bname):
-            actq, act_qps = _nc_concat(outs, state)
-        yield bname
+
+    def leaf(name, block, op, act):
+        if op[0] == "conv":
+            with tracing.span("conv", name):
+                return _nc_run_conv(name, *act, op, wpack, specs[name],
+                                    plans[name], geom, const, engine, records)
+        with tracing.span("pool", name):
+            return _nc_run_pool(name, *act, op, specs[name], geom, const,
+                                records)
+
+    def join(name, outs):
+        with tracing.span("concat", name):
+            return _nc_concat(outs, state)
+
+    for stage, (actq, act_qps) in _walk(config, (actq, act_qps), leaf, join):
+        yield stage
     with tracing.span("fc"):
         state["logits"] = _nc_fc_tail(actq, act_qps, wpack, specs, plans,
                                       geom, const, engine, records)
@@ -815,20 +765,8 @@ def _nc_fc_tail(actq, act_qps, wpack, specs, plans, geom, const, engine,
     # two separate float32 operations, as the reference computes them
     logits = acc.to(torch.float32) * sxw[:, None]
     logits = logits + fc_bias[None, :]
-    modeled = sim.modeled_layer_cycles(stats.plan, geom, const)
-    records.append(NCLayerReport(
-        name="FullyConnected", kind="fc", out_shape=tuple(logits.shape),
-        emulated_cycles=int(cycles),
-        modeled_cycles=(modeled["total_cycles"]
-                        + stats.reexec_passes * modeled["reexec_pass_cycles"]),
-        serial_passes=modeled["serial_passes"], modeled_s=modeled["total_s"],
-        lanes=stats.lanes, zero_operand_lanes=stats.zero_operand_lanes,
-        batch=B, filter_loads=stats.filter_loads,
-        skipped_passes=modeled["skipped_passes"],
-        zero_filters=stats.zero_filters, overlap=stats.overlap,
-        integrity=stats.integrity, reexec_passes=stats.reexec_passes,
-        faults_detected=stats.faults_detected,
-        quarantined_slices=stats.quarantined_slices))
+    records.append(_layer_report("FullyConnected", "fc", logits.shape, cycles,
+                                 geom, const, stats=stats))
     return logits
 
 
@@ -942,53 +880,37 @@ def nc_forward(params: dict, x,
     occ = (network_occupancy(wpack, config)
            if sparse and schedule is None else None)
 
-    if stream_chunk is not None and stream_chunk < B:
-        # cross-layer streaming: chunk generators advanced in a skewed
-        # wavefront; chunk i runs stage t while chunk i+1 runs stage t-1
-        per_records: list[list[NCLayerReport]] = []
-        per_states: list[dict] = []
-        gens = []
-        for i in range(0, B, stream_chunk):
-            xc = x4[i:i + stream_chunk]
-            sc = sched.plan_network(specs_list, geom, batch=xc.shape[0],
-                                    occupancy=occ, overlap=overlap,
-                                    integrity=integrity,
-                                    compressed=compressed)
-            recs: list[NCLayerReport] = []
-            st = {"concat_requant_cycles": 0}
-            per_records.append(recs)
-            per_states.append(st)
-            gens.append(_nc_stage_gen(
-                xc, config, wpack, specs, {p.spec.name: p for p in sc.layers},
-                geom, const, engine, recs, st))
-        waiting, active = list(gens), []
-        while waiting or active:
-            if waiting:
-                active.append(waiting.pop(0))  # next chunk enters, 1 behind
-            for g in list(active):
-                try:
-                    next(g)
-                except StopIteration:
-                    active.remove(g)
-        logits = torch.cat([st["logits"] for st in per_states])
-        report = NCForwardReport(
-            config.name, tuple(_merge_chunk_records(per_records, B)),
-            batch=B, concat_requant_cycles=sum(
-                st["concat_requant_cycles"] for st in per_states))
-        return (logits if batched else logits[0]), report
-
-    if schedule is None:
-        schedule = sched.plan_network(specs_list, geom, batch=B,
-                                      occupancy=occ, overlap=overlap,
-                                      integrity=integrity,
-                                      compressed=compressed)
-    plans = {p.spec.name: p for p in schedule.layers}
-    records: list[NCLayerReport] = []
-    state = {"concat_requant_cycles": 0}
-    for _ in _nc_stage_gen(x4, config, wpack, specs, plans, geom, const,
-                           engine, records, state):
-        pass
-    report = NCForwardReport(config.name, tuple(records), batch=B,
-                             concat_requant_cycles=state["concat_requant_cycles"])
-    logits = state["logits"]
+    # the batch in chunks of ``chunk`` images (one chunk without streaming),
+    # each chunk's generator advanced in a skewed wavefront: chunk i runs
+    # stage t while chunk i+1 runs stage t-1
+    chunk = B if stream_chunk is None else min(stream_chunk, B)
+    per_records: list[list[NCLayerReport]] = []
+    per_states: list[dict] = []
+    gens = []
+    for i in range(0, B, chunk):
+        xc = x4[i:i + chunk]
+        sc = schedule if schedule is not None else sched.plan_network(
+            specs_list, geom, batch=xc.shape[0], occupancy=occ,
+            overlap=overlap, integrity=integrity, compressed=compressed)
+        recs: list[NCLayerReport] = []
+        st = {"concat_requant_cycles": 0}
+        per_records.append(recs)
+        per_states.append(st)
+        gens.append(_nc_stage_gen(
+            xc, config, wpack, specs, {p.spec.name: p for p in sc.layers},
+            geom, const, engine, recs, st))
+    waiting, active = gens, []
+    while waiting or active:
+        if waiting:
+            active.append(waiting.pop(0))  # next chunk enters, 1 behind
+        for g in list(active):
+            try:
+                next(g)
+            except StopIteration:
+                active.remove(g)
+    logits = torch.cat([st["logits"] for st in per_states])
+    report = NCForwardReport(
+        config.name, tuple(_merge_chunk_records(per_records, B)), batch=B,
+        concat_requant_cycles=sum(st["concat_requant_cycles"]
+                                  for st in per_states))
     return (logits if batched else logits[0]), report

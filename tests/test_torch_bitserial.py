@@ -206,3 +206,50 @@ def test_cycle_formulas_and_occupancy():
     rz, rp = rbs.filter_occupancy(rows, 8, zero=3)
     tz, tp = tbs.filter_occupancy(torch.from_numpy(rows), 8, zero=3)
     assert (rz == tz.numpy()).all() and (rp == tp.numpy()).all()
+
+
+def _filter_rows(kind: str, M: int, K: int, seed: int) -> np.ndarray:
+    """uint8 filter rows ``[M, K]``: every plane live (``dense``), the last
+    half of the filters zero (``pruned50``), or no value above 127 so the
+    top plane is dead (``dead_plane``)."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, 256 if kind != "dead_plane" else 128, (M, K))
+    if kind == "pruned50":
+        rows[M // 2:] = 0
+    return rows.astype(np.int64)
+
+
+@pytest.mark.parametrize("K", [9, 75])  # P = 16 (< 32) and P = 128 (>= 32)
+@pytest.mark.parametrize("kind", ["dense", "pruned50", "dead_plane"])
+def test_compressed_planes_against_the_reference(kind, K):
+    """The CSR filter store of both packages over the filter word grid
+    ``nc_conv2d`` builds: bytes, ``dense()`` and ``dense_columns`` on
+    ragged ranges; and ``split_bytes`` over one slice equal to the store's
+    bytes (the count a serial compressed plan reports), over ragged slices
+    equal to the sum of the reference's per-slice stores (an overlap
+    plan's)."""
+    from repro.core import nc_layers as rnc
+    from repro_torch.core import nc_layers as tnc
+
+    M = 13
+    rows = _filter_rows(kind, M, K, seed=K)
+    ref_grid = rnc._pack_w_rows(rows.astype(np.uint64), 8)
+    grid = tnc._pack_w_rows(_t(rows), 8)
+    assert (np.asarray(ref_grid).astype(np.int64) == grid.numpy()).all()
+    ref = rbs.CompressedPlanes.compress(ref_grid)
+    got = tbs.CompressedPlanes.compress(grid)
+    assert (got.payload_bytes, got.index_bytes, got.live_planes) == (
+        ref.payload_bytes, ref.index_bytes, ref.live_planes)
+    assert got.live_planes == (7 if kind == "dead_plane" else 8)
+    assert torch.equal(got.dense(), grid)
+    for m0, m1 in ((0, M), (0, 1), (2, 9), (6, 7), (M - 1, M), (5, 5)):
+        assert torch.equal(got.dense_columns(m0, m1), grid[:, m0:m1])
+        assert (np.asarray(ref.dense_columns(m0, m1)).astype(np.int64)
+                == got.dense_columns(m0, m1).numpy()).all()
+    assert tbs.CompressedPlanes.split_bytes(grid, [(0, M)]) == (
+        got.payload_bytes, got.index_bytes)
+    tiles = [(0, 4), (4, 8), (8, 12), (12, M)]
+    per = [rbs.CompressedPlanes.compress(ref_grid[:, m0:m1])
+           for m0, m1 in tiles]
+    assert tbs.CompressedPlanes.split_bytes(grid, tiles) == (
+        sum(c.payload_bytes for c in per), sum(c.index_bytes for c in per))

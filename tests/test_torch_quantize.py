@@ -13,6 +13,7 @@ import torch
 from repro.core import quantize as rq
 from repro.models import inception as ri
 from repro_torch.core import quantize as tq
+from repro_torch.kernels.requant_rows import requant_rows_plain
 from repro_torch.models import inception as ti
 
 torch.set_num_threads(1)
@@ -112,7 +113,10 @@ def test_requantize_fixedpoint_and_requant_image():
         m_t, s_t = tq.fixed_point_multiplier(real)
         for zp in (0, 17):
             want = np.asarray(ri._requant_image(acc, real, zp))
-            got = ti._requant_image(torch.from_numpy(acc), real, zp)
+            # the port's requantization, one row of the batched plain version
+            got = torch.empty(acc.shape, dtype=torch.uint8)
+            requant_rows_plain(torch.from_numpy(acc).reshape(1, -1, 1),
+                               got.view(1, -1, 1), 0, m_t, s_t, zp)
             assert (want == got.numpy()).all()
             # the generic integer requant agrees with the host int64 path
             ref64 = np.clip(((acc * int(m_r) + (1 << (int(s_r) - 1)))

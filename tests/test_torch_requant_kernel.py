@@ -2,9 +2,9 @@
 Hopper kernel and its plain version) and the batched host qparams that feed
 it.
 
-On the CPU: the plain version byte for byte against per-image
-``inception._requant_image`` calls and the formula in numpy, on int64 staging with negatives and
-int32 extremes and on uint8 branch activations with an input zero point,
+On the CPU: the plain version byte for byte against itself one image at a
+time and the formula in numpy, on int64 staging with negatives and int32
+extremes and on uint8 branch activations with an input zero point,
 at B in {1, 2, 5, 64}, at every shift ``fixed_point_multiplier`` yields for
 multipliers from 1e-9 to 1, written at a channel offset into a wider
 output, with its live counts; the shift range's raise; the CPU route
@@ -66,6 +66,16 @@ def _numpy_image(acc: torch.Tensor, real: float, zp: int) -> torch.Tensor:
                                     0, 255).astype(np.uint8))
 
 
+def _one_image(acc: torch.Tensor, real: float, zp: int) -> torch.Tensor:
+    """One image's staging requantized alone: the plain version over one
+    row of one channel."""
+    mult, shift = q.fixed_point_multiplier(real)
+    out = torch.empty(acc.shape, dtype=torch.uint8)
+    rq.requant_rows_plain(acc.reshape(1, -1, 1), out.view(1, -1, 1), 0, mult,
+                          shift, zp)
+    return out
+
+
 def _rows(reals):
     ms = [q.fixed_point_multiplier(r) for r in reals]
     return [m for m, _ in ms], [s for _, s in ms]
@@ -80,7 +90,7 @@ def test_plain_matches_requant_image_on_int64_staging(B):
     out = torch.empty((B, 6, 7), dtype=torch.uint8)
     live = rq.requant_rows_plain(x, out, 0, mult, shift, zps, live=True)
     for b in range(B):
-        want = inception._requant_image(x[b], reals[b], zps[b])
+        want = _one_image(x[b], reals[b], zps[b])
         assert torch.equal(out[b], want)
         assert torch.equal(want, _numpy_image(x[b], reals[b], zps[b]))
         assert int(live[b]) == int((want != zps[b]).sum())
@@ -102,7 +112,7 @@ def test_plain_matches_requant_image_on_uint8_branches(B):
                                  offset=16) is None
     for b in range(B):
         acc = y[b].to(torch.int64) - in_zp[b]
-        want = inception._requant_image(acc, reals[b], out_zp[b])
+        want = _one_image(acc, reals[b], out_zp[b])
         assert torch.equal(out[b, :, 16:32], want)
         assert torch.equal(want, _numpy_image(acc, reals[b], out_zp[b]))
     assert bool((out[..., :16] == 77).all() and (out[..., 32:] == 77).all())
@@ -120,7 +130,7 @@ def test_every_shift_of_the_multipliers_from_1e_9_to_1():
     out = torch.empty(x.shape, dtype=torch.uint8)
     rq.requant_rows_plain(x, out, 0, mult, shift, 3)
     for b, r in enumerate(reals):
-        assert torch.equal(out[b], inception._requant_image(x[b], r, 3))
+        assert torch.equal(out[b], _one_image(x[b], r, 3))
         assert torch.equal(out[b], _numpy_image(x[b], r, 3))
 
 
@@ -130,8 +140,9 @@ def test_a_shift_outside_1_to_63_raises(shift):
     out = torch.empty(x.shape, dtype=torch.uint8)
     with pytest.raises(ValueError, match="1..63"):
         rq.requant_rows_plain(x, out, 0, [1 << 30] * 2, [31, shift], 0)
-    with pytest.raises(ValueError, match="1..63"):
-        inception._requant_image(x[0], 1e-12, 0)  # shift 70
+    with pytest.raises(ValueError, match="1..63"):  # one row at shift 70
+        rq.requant_rows_plain(x[:1], out[:1], 0,
+                              *q.fixed_point_multiplier(1e-12), 0)
 
 
 def test_shift_63_is_taken():

@@ -203,14 +203,6 @@ def test_profiler_switches_tracing_on_and_off():
     assert s2 is not s and set(s2.totals()) == {"c"}
 
 
-def _live_planes(wq, w_qp, zero_filters) -> int:
-    K, M = int(np.prod(wq.shape[:3])), wq.shape[3]
-    rows = wq.reshape(K, M).t().to(torch.int64)
-    live = [m for m in range(M) if m not in set(zero_filters)]
-    rows = rows[live]
-    return sum(int(bool(((rows >> p) & 1).any())) for p in range(w_qp.bits))
-
-
 def expected_host_syncs(engine, B: int) -> int:
     """``PERF.md``'s count of one served batch of ``B`` images."""
     n = 0
@@ -218,7 +210,7 @@ def expected_host_syncs(engine, B: int) -> int:
         spec = plan.spec
         if spec.kind not in ("conv", "fc"):
             continue
-        wq, w_qp, _ = engine.wpack[spec.name]
+        wq = engine.wpack[spec.name][0]
         n += 2  # the operands: zero points copied, zero-operand count read
         if wq.device != engine.device:
             n += 1  # the filters' copy to the device
@@ -230,9 +222,7 @@ def expected_host_syncs(engine, B: int) -> int:
         if zero:
             n += 5  # indices copied, checked, marked, gathered, filled
         if plan.compressed:
-            n += w_qp.bits + 2 * _live_planes(wq, w_qp, zero)
-            if plan.overlap:
-                n += 4  # the per-pass store bytes
+            n += 4  # the CSR store's bytes counted from the filter words
     return n
 
 
@@ -371,10 +361,10 @@ def test_chip_smoke_split_reads_the_program_spans(monkeypatch):
     wpack = inception.prepare_conv_weights(params, cfg)
     x = torch.rand((2, 47, 47, 3), generator=torch.Generator().manual_seed(1))
     attrs = (inception.nc_forward, nc.nc_conv2d, bs.packed_dot_words,
-             nc._pack_x_rows, inception._requant_image)
+             nc._pack_x_rows, inception._requant_batch)
     split = cs.phase_split(inception, params, x, wpack, "cpu", cfg)
     assert (inception.nc_forward, nc.nc_conv2d, bs.packed_dot_words,
-            nc._pack_x_rows, inception._requant_image) == attrs
+            nc._pack_x_rows, inception._requant_batch) == attrs
     assert list(split) == ["pack", "dot", "minmax tree", "requant", "other"]
     assert all(v > 0 for k, v in split.items() if k != "other")
     assert split["other"] > -1e-3
