@@ -35,7 +35,11 @@ Registered backends
     ``walk``: more than 8 planes, an accumulator narrower than the product,
     a possible int32 overflow, and grids that neither separate nor pair.
     It performs no zero-operand elision and counts nothing in
-    ``bitserial.SKIP_STATS`` on its native path.
+    ``bitserial.SKIP_STATS`` on its native path.  On a CUDA tensor an
+    unchecked convolution skips the words altogether and hands its integer
+    rows to the same kernels (``_gemm_dot_rows``, counted as a native
+    ``gemm`` dispatch), under the operand conditions of
+    ``_gemm_operand_reason``.
 """
 from __future__ import annotations
 
@@ -208,8 +212,10 @@ def _row_grid(words: torch.Tensor, K: int):
     return vals.reshape(-1, K), grid[:-1] + (grid[-1] * r,)
 
 
-def _gemm_fallback_reason(xw, ww, *, K: int, acc_bits: int) -> str | None:
-    nx, nw = int(xw.shape[0]), int(ww.shape[0])
+def _gemm_operand_reason(nx: int, nw: int, *, K: int,
+                         acc_bits: int) -> str | None:
+    """Why operands of ``nx`` and ``nw`` planes over ``K`` lanes cannot take
+    the bit-serial GEMM, whatever their layout; None when they can."""
     if nx > 8 or nw > 8:
         return "more than 8 bit planes"
     backend = _REGISTRY["gemm"]
@@ -219,9 +225,15 @@ def _gemm_fallback_reason(xw, ww, *, K: int, acc_bits: int) -> str | None:
         return "accumulator narrower than the product"
     if K * ((1 << nx) - 1) * ((1 << nw) - 1) >= (1 << 31):
         return "int32 accumulator overflow"
-    if xw.ndim != ww.ndim:
-        return "grid ranks differ"
     return None
+
+
+def _gemm_fallback_reason(xw, ww, *, K: int, acc_bits: int) -> str | None:
+    reason = _gemm_operand_reason(int(xw.shape[0]), int(ww.shape[0]), K=K,
+                                  acc_bits=acc_bits)
+    if reason is None and xw.ndim != ww.ndim:
+        return "grid ranks differ"
+    return reason
 
 
 PAIR_BLOCK = 1024  # rows of one diagonal block of a paired-row product
@@ -242,6 +254,26 @@ def _exact_gemm(X: torch.Tensor, W: torch.Tensor, nx: int,
             _bsm.pack_activation_nibbles(X), planes, n_bits=nw, w4a4=True)
     return ops.bitserial_matmul_exact(X.to(torch.uint8).contiguous(),
                                       planes, n_bits=nw)
+
+
+def _gemm_dot_rows(X: torch.Tensor, W: torch.Tensor, nx: int,
+                   nw: int) -> torch.Tensor:
+    """All dots of the integer rows ``X`` ``[T, K]`` and ``W`` ``[M, K]`` of
+    ``nx``- and ``nw``-bit operands, ``[T, M]`` int64: the GEMM of
+    :func:`_gemm_dot_words` on the rows themselves, which its word grids
+    would decode back to (each value's low ``nx``/``nw`` bits).  The caller
+    holds the operands to :func:`_gemm_operand_reason`."""
+    _note("gemm", native=True)
+    X, W = _low_bits(X, nx), _low_bits(W, nw)
+    return _exact_gemm(X, W, nx, nw).to(torch.int64)
+
+
+def _low_bits(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """The low ``n <= 8`` bits of integer ``rows`` as uint8 (no copy for
+    8-bit uint8 rows)."""
+    if n < 8 or rows.dtype != torch.uint8:
+        rows = rows & ((1 << n) - 1)
+    return rows.to(torch.uint8)
 
 
 def _gemm_dot_words(xw, ww, *, K: int, acc_bits: int) -> torch.Tensor:

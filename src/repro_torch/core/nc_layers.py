@@ -6,19 +6,24 @@ MACs, in-array log-tree reduction, fixed-point requantization — with every
 tensor on the caller's device.  Outputs, cycles and :class:`ConvStats` equal
 the reference's.
 
-A conv runs all of its planned row and filter tiles in ONE
-``packed_dot_words`` call over ``[rows_total, live filters]``: values do not
-depend on tiling, and one launch per layer keeps the GPU busy where one
-launch per planned tile would not.  The plan's tiles are still reported
-(``ConvStats.tiles``/``tile_pixels``/``tile_filters``).  Only a backend with
-a grid cap (``walk``) splits the rows into chunks.  Overlap plans execute
-serially (results are byte-identical by the reference's own contract) and
-report ``overlap`` as the reference does.
+A conv runs all of its planned row and filter tiles in ONE dot over
+``[rows_total, live filters]``: values do not depend on tiling, and one
+launch per layer keeps the GPU busy where one launch per planned tile would
+not.  The plan's tiles are still reported
+(``ConvStats.tiles``/``tile_pixels``/``tile_filters``).  On a CUDA tensor
+an unchecked ``gemm`` layer hands its uint8 window and filter rows to the
+bit-serial GEMM kernel directly (the rows route, :func:`_dot_rows`): the
+row-aligned words would decode back to the same integers.  Everywhere else
+the dot is one ``packed_dot_words`` call on the words (the word route);
+only a backend with a grid cap (``walk``) splits the rows into chunks.
+Overlap plans execute serially (results are byte-identical by the
+reference's own contract) and report ``overlap`` as the reference does.
 
 Compressed plans report the bytes of the
 :class:`~repro_torch.core.bitserial.CompressedPlanes` store, counted from
 the filter words (``CompressedPlanes.split_bytes``), and the dot reads
-those words, which the store would give back byte for byte.  Integrity
+those words, which the store would give back byte for byte (or, on the
+rows route, the rows they were packed from).  Integrity
 plans and active fault scopes (``core/faults.py``) take the checked path
 (:func:`_checked_passes`): all passes are verified at once against their
 ABFT checksums, then walked in the reference's order so that fault draws,
@@ -211,12 +216,24 @@ def _pack_w_rows(rows: torch.Tensor, n_bits: int) -> torch.Tensor:
     return out[:, :, None]
 
 
-def _dot_rows(win_flat: torch.Tensor, ww: torch.Tensor, x_bits: int, K: int,
+def _dot_rows(win_flat: torch.Tensor, w_rows: torch.Tensor,
+              ww: torch.Tensor | None, *, x_bits: int, w_bits: int, K: int,
               acc_bits: int, engine: str) -> torch.Tensor:
-    """All (row, filter) dots of a layer: ``[rows, M]`` int64 for the filter
-    word grid ``ww`` (``_pack_w_rows``'s layout), in one
-    ``packed_dot_words`` call unless the backend caps its grid."""
-    T, M = win_flat.shape[0], ww.shape[1]
+    """All (row, filter) dots of a layer: ``[rows, M]`` int64 of the window
+    rows ``win_flat`` and filter rows ``w_rows``.
+
+    ``ww`` None is the rows route: one bit-serial GEMM on the rows' low
+    ``x_bits``/``w_bits`` bits (``backends._gemm_dot_rows``).  Otherwise
+    the word route, through the filter word grid ``ww`` (``_pack_w_rows``'s
+    layout) in one ``packed_dot_words`` call unless the backend caps its
+    grid.  On the card, where both routes run, the ``dot`` span is
+    annotated with its ``route`` and counts the rows fed (``dot.rows``)."""
+    T, M = win_flat.shape[0], w_rows.shape[0]
+    if ww is None:
+        with tracing.span("dot"):
+            tracing.annotate("route", "rows")
+            tracing.count("dot.rows", T)
+            return _backends._gemm_dot_rows(win_flat, w_rows, x_bits, w_bits)
     P, wpr, r = bs._row_layout(K)
     cap = _backends.get_backend(engine).max_grid_words
     chunk = T
@@ -229,6 +246,9 @@ def _dot_rows(win_flat: torch.Tensor, ww: torch.Tensor, x_bits: int, K: int,
         with tracing.span("layer.pack"):
             xw = _pack_x_rows(win_flat[t0:t1], x_bits)
         with tracing.span("dot"):
+            if win_flat.is_cuda:
+                tracing.annotate("route", "words")
+                tracing.count("dot.rows", t1 - t0)
             vals, _ = bs.packed_dot_words(xw, ww, K=K, acc_bits=acc_bits,
                                           engine=engine)
         out[t0:t1] = vals.reshape(M, -1)[:, : t1 - t0].t()
@@ -669,6 +689,11 @@ def nc_conv2d(
     fs = faults.active()
     integrity_on = bool(plan.integrity)
     checked = integrity_on or fs is not None
+    # the rows route: where nothing reads the words but the dot
+    rows_route = (dev.type == "cuda" and engine == "gemm" and not checked
+                  and _backends._gemm_operand_reason(
+                      x_qps[0].bits, w_qp.bits, K=K,
+                      acc_bits=acc_bits) is None)
     words0 = (bs.SKIP_STATS.words_total, bs.SKIP_STATS.words_skipped)
     p_tiles = ([(p0, min(p0 + tile_rows, rows_total))
                 for p0 in range(0, rows_total, tile_rows)] if M_live else [])
@@ -679,9 +704,13 @@ def nc_conv2d(
     run = dict(tiles=0, verify_passes=0, reexec_passes=0, faults_detected=0,
                integrity_cycles=0, reexec_cycles=0, plan=plan)
     if M_live:
+        ww_all = None
         with tracing.span("layer.pack"):
-            # filters packed once per layer per batch
-            ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
+            # filters packed once per layer per batch, where the words are
+            # read: the word route's dot, the checked passes, the walk's
+            # skip counts and the CSR store's bytes
+            if not rows_route or compressed_exec:
+                ww_all = _pack_w_rows(w_rows_live, w_qp.bits)
             if compressed_exec:
                 # the CSR-per-bit-plane store's bytes, counted from the words
                 # the dot reads (its reconstruction is those words): one
@@ -692,8 +721,10 @@ def nc_conv2d(
         walk = engine == "walk"
         # the walk's own per-call counts are replaced by the per-tile ones
         with bs.counts_into(bs.SkipStats()) if walk else nullcontext():
-            vals = _dot_rows(win_flat, ww_all, x_qps[0].bits, K, acc_bits,
-                             engine)
+            vals = _dot_rows(win_flat, w_rows_live,
+                             None if rows_route else ww_all,
+                             x_bits=x_qps[0].bits, w_bits=w_qp.bits, K=K,
+                             acc_bits=acc_bits, engine=engine)
         if checked:
             run = _checked_passes(
                 vals, win_flat, w_rows_live, ww_all, p_tiles=p_tiles,
